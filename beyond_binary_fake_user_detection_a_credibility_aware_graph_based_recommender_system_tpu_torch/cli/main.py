@@ -1,0 +1,124 @@
+"""Command-line interface of the PyTorch package.
+
+    python -m beyond_binary_..._tpu_torch.cli build-graph --jsonl R.jsonl --out D/
+    python -m ..._tpu_torch.cli merge-user-ids --npy cred.npy --graph D/graph.npz
+                                               --out D/cred.csv
+    python -m ..._tpu_torch.cli evaluate --graph D/graph.npz --params best.npz
+                                         --preset cu_message [k=v ...]
+
+Every command takes ``--device`` (default ``cuda``; ``cpu`` runs on the
+CPU).  ``train-rec`` and ``train-cred`` come with the training slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+
+def _add_overrides(p):
+    p.add_argument("overrides", nargs="*",
+                   help="config overrides as key=value")
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+
+
+def cmd_build_graph(args):
+    from ..data.ingest import ingest_jsonl
+    from ..graph.build import build_bipartite_graph
+    from ..utils.config import IngestConfig
+    from ..utils.device import resolve_device
+
+    resolve_device(args.device)
+    cfg = IngestConfig(jsonl_path=args.jsonl).with_overrides(args.overrides)
+    table = ingest_jsonl(args.jsonl, cfg)
+    graph = build_bipartite_graph(table)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    graph.save_npz(out / "graph.npz")
+    print(f"Saved graph to {out/'graph.npz'}")
+    print(graph.summary())
+
+
+def cmd_merge_user_ids(args):
+    import numpy as np
+    from ..data.cred_io import save_credibility_csv
+    from ..graph.build import BipartiteGraph
+    from ..utils.device import resolve_device
+
+    resolve_device(args.device)
+    graph = BipartiteGraph.load_npz(args.graph)
+    cred = np.load(args.npy)
+    save_credibility_csv(args.out, cred, graph.user_ids)
+    print(f"Saved {args.out} ({len(cred)} users)")
+
+
+def cmd_evaluate(args):
+    """Prints the metric block and a JSON line; returns the metrics."""
+    from ..configs.presets import get_preset
+    from ..graph.build import BipartiteGraph
+    from ..train.checkpoint import load_params_npz
+    from ..train.trainer import RecTrainer, format_metrics_block
+
+    cfg = get_preset(args.preset).with_overrides(args.overrides)
+    if args.cred:
+        cfg = cfg.replace(cred_csv_path=args.cred)
+    graph = BipartiteGraph.load_npz(args.graph)
+    trainer = RecTrainer(cfg, graph, device=args.device)
+    params = load_params_npz(args.params, device=trainer.device)
+    res = trainer.evaluate(params, args.split)
+    print(format_metrics_block(args.split.upper(), res))
+    print(json.dumps({str(k): v for k, v in res.items()}, default=float))
+    return res
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(prog="bb-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("build-graph", help="JSONL -> bipartite graph npz")
+    p.add_argument("--jsonl", required=True)
+    p.add_argument("--out", required=True)
+    _add_device(p)
+    _add_overrides(p)
+    p.set_defaults(fn=cmd_build_graph)
+
+    p = sub.add_parser("merge-user-ids",
+                       help="join a credibility .npy with a graph's id map "
+                            "into the CSV contract (merge_user_id.py)")
+    p.add_argument("--npy", required=True)
+    p.add_argument("--graph", required=True)
+    p.add_argument("--out", required=True)
+    _add_device(p)
+    p.set_defaults(fn=cmd_merge_user_ids)
+
+    p = sub.add_parser("evaluate", help="evaluate saved params")
+    p.add_argument("--graph", required=True)
+    p.add_argument("--params", required=True)
+    p.add_argument("--preset", default="vanilla")
+    p.add_argument("--cred", default=None)
+    p.add_argument("--split", default="test")
+    _add_device(p)
+    _add_overrides(p)
+    p.set_defaults(fn=cmd_evaluate)
+    return ap
+
+
+def run(argv=None):
+    """Run one command; returns what the command returns (``evaluate``:
+    its metrics dict)."""
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+def main(argv=None) -> None:
+    """Console entry point: returns None, so ``sys.exit(main())`` exits 0."""
+    run(argv)
+
+
+if __name__ == "__main__":
+    main()

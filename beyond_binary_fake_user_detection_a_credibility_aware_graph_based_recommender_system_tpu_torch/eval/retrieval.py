@@ -1,0 +1,99 @@
+"""Retrieval / serving API: top-k items for users from trained embeddings.
+
+The production-facing counterpart of the full-catalog evaluator
+(reference lightgcn.py:459-509): dense dot-product scoring with optional
+seen-item exclusion, on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..graph.build import BipartiteGraph
+
+
+def exact_fp32_matmul() -> None:
+    """Score in full fp32: TF32 keeps about three decimal digits, enough to
+    reorder near-tied scores against the reference ranking."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def build_exclusion_rows(graph: BipartiteGraph, split: str = "train"
+                         ) -> np.ndarray:
+    """(U, Pmax) per-user seen-item lists padded with num_items.
+
+    O(U*Pmax) memory — evaluation uses :func:`exclusion_rows_for_users` per
+    batch instead; this full-table form is a serving convenience for
+    repeated small-batch queries over the same table."""
+    csr = graph.user_csr(split)
+    deg = csr.degrees()
+    pmax = max(int(deg.max()) if deg.size else 1, 1)
+    if csr.indices.shape[0] == 0:
+        return np.full((graph.num_users, pmax), graph.num_items, np.int32)
+    offs = np.arange(pmax, dtype=np.int64)[None, :]
+    valid = offs < deg[:, None]
+    flat = np.minimum(csr.indptr[:-1, None] + offs, csr.indices.shape[0] - 1)
+    return np.where(valid, csr.indices[flat],
+                    graph.num_items).astype(np.int32)
+
+
+def exclusion_rows_for_users(graph: BipartiteGraph, users: np.ndarray,
+                             split: str = "train") -> np.ndarray:
+    """(B, Pb) seen-item rows for ONE user batch, padded with num_items;
+    the width is the batch's max degree rounded up to a power of two."""
+    csr = graph.user_csr(split)
+    users = np.asarray(users, np.int64)
+    deg = (csr.indptr[users + 1] - csr.indptr[users]).astype(np.int64)
+    pmax = int(deg.max()) if deg.size else 1
+    pb = 1 << max(int(np.ceil(np.log2(max(pmax, 1)))), 0)
+    if csr.indices.shape[0] == 0:
+        return np.full((users.shape[0], pb), graph.num_items, np.int32)
+    offs = np.arange(pb, dtype=np.int64)[None, :]
+    valid = offs < deg[:, None]
+    flat = np.minimum(csr.indptr[users][:, None] + offs,
+                      csr.indices.shape[0] - 1)
+    return np.where(valid, csr.indices[flat],
+                    graph.num_items).astype(np.int32)
+
+
+def mask_excluded(scores: torch.Tensor, excl: torch.Tensor,
+                  value: float) -> torch.Tensor:
+    """Set ``scores[b, excl[b, j]] = value`` in place, skipping the pad id
+    ``num_items`` (the JAX package drops it with ``mode="drop"``)."""
+    excl = excl.to(torch.int64)
+    keep = excl < scores.shape[1]
+    rows = torch.arange(scores.shape[0], device=scores.device)[:, None]
+    scores[rows.expand_as(excl)[keep], excl[keep]] = value
+    return scores
+
+
+def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                   users: torch.Tensor, k: int,
+                   exclude_rows: Optional[torch.Tensor] = None,
+                   exclude_batch_rows: Optional[torch.Tensor] = None,
+                   mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores (B,k), item ids (B,k)), excluded items scored ``-inf``.
+
+    ``exclude_rows``: (U, Pmax) padded exclusion table (pad = num_items);
+    ``exclude_batch_rows``: pre-gathered (B, Pb) rows for THIS batch
+    (:func:`exclusion_rows_for_users`).  Ties may come back in another
+    order than ``lax.top_k``'s.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded retrieval is not ported yet "
+            "(ROADMAP.md Queue 1, parallel/)")
+    exact_fp32_matmul()
+    u = user_emb[users]
+    if exclude_batch_rows is not None:
+        excl = exclude_batch_rows
+    else:
+        excl = exclude_rows[users] if exclude_rows is not None else None
+    scores = u @ item_emb.T                                   # (B, I)
+    if excl is not None:
+        scores = mask_excluded(scores, excl, float("-inf"))
+    return torch.topk(scores, k, dim=1)

@@ -1,0 +1,194 @@
+"""LightGCN model family (Stage B): propagation and scoring.
+
+One parameterized module covers all reference variants:
+
+  * vanilla joint-adjacency LightGCN          reference lightgcn.py:306-349
+  * CredLightGCN, synchronous (Jacobi) bipartite updates, Eq 3.22–3.26
+                                              reference lightgcn_cu.py:405-463
+  * cred-in-message Gauss-Seidel bipartite updates
+                                 reference version_1/lightgcn_cu_message.py:391-452
+
+Parity-critical semantics, as in the JAX package:
+  * "bipartite_sync": e_i^{k+1} = A_iu e_u^k and e_u^{k+1} = A_ui e_i^k —
+    the user update consumes the *previous* item layer;
+  * "gauss_seidel": e_i^{k+1} = A_iu e_u^k then e_u^{k+1} = A_ui e_i^{k+1} —
+    the user update consumes the *fresh* item layer;
+  * final embeddings are the mean over layers 0..K (inclusive of layer 0);
+  * Xavier-uniform init on an (N, D) table: limit = sqrt(6 / (N + D)).
+
+bf16 precision: the ego tables are cast to bf16 once, every SpMM runs on
+bf16 messages with fp32 per-destination sums, the layer mean accumulates in
+fp32, and fp32 tables come back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..graph.build import BipartiteGraph
+from ..graph.operators import EdgeMap, build_edge_maps
+from ..ops.spmm import SpmmOperator
+from ..utils.config import RecConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def xavier_uniform(gen: torch.Generator, shape: Tuple[int, int],
+                   dtype=torch.float32) -> torch.Tensor:
+    """torch.nn.init.xavier_uniform_ on a 2-D (fan_out, fan_in) tensor,
+    drawn on the generator's device."""
+    fan_out, fan_in = shape
+    limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
+    u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
+    return u * (2.0 * limit) - limit
+
+
+def init_params(gen: torch.Generator, cfg: RecConfig, num_users: int,
+                num_items: int) -> Params:
+    """"joint" = one (U+I, D) table (lightgcn.py:315);
+    "split" = separate user/item tables (lightgcn_cu.py:415-418)."""
+    if cfg.table_layout == "joint":
+        return {"emb": xavier_uniform(gen, (num_users + num_items,
+                                            cfg.emb_dim))}
+    return {"user_emb": xavier_uniform(gen, (num_users, cfg.emb_dim)),
+            "item_emb": xavier_uniform(gen, (num_items, cfg.emb_dim))}
+
+
+def params_from_jax(params: Mapping[str, np.ndarray], device
+                    ) -> Dict[str, torch.Tensor]:
+    """The JAX package's parameter dict (as numpy arrays, same keys: "emb",
+    or "user_emb" and "item_emb") as this package's tensors on ``device``."""
+    return {k: torch.as_tensor(np.array(v), device=device)
+            for k, v in params.items()}
+
+
+def ego_tables(params: Params, num_users: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer-0 (ego) user/item tables regardless of layout."""
+    if "emb" in params:
+        return params["emb"][:num_users], params["emb"][num_users:]
+    return params["user_emb"], params["item_emb"]
+
+
+class LightGCN:
+    """Propagation + scoring for one Stage-B configuration.
+
+    Construction turns the edge-weight recipe into SpmmOperator(s) on
+    ``device``; ``propagate(params)`` returns the layer-averaged
+    (user_emb, item_emb).
+    """
+
+    def __init__(self, cfg: RecConfig, graph: BipartiteGraph,
+                 cred: Optional[np.ndarray] = None, device="cuda"):
+        cfg.validate()
+        self.cfg = cfg
+        self.num_users = graph.num_users
+        self.num_items = graph.num_items
+        self.device = torch.device(device)
+
+        def op(em):
+            return SpmmOperator(em, self.device, backend=cfg.spmm_backend,
+                                precision=cfg.spmm_precision)
+
+        maps = build_edge_maps(graph, cfg.weight_mode, cred)
+        if cfg.propagation == "symmetric":
+            assert isinstance(maps, EdgeMap)
+            self.joint_op = op(maps)
+            self.item_from_user = self.user_from_item = None
+        else:
+            item_from_user_map, user_from_item_map = maps
+            self.item_from_user = op(item_from_user_map)
+            self.user_from_item = op(user_from_item_map)
+            self.joint_op = None
+
+    # -- propagation ------------------------------------------------------
+
+    def _prop_dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.cfg.spmm_precision == "bf16"
+                else torch.float32)
+
+    def _joint_table(self, params: Params) -> torch.Tensor:
+        if "emb" in params:
+            return params["emb"]
+        return torch.cat([params["user_emb"], params["item_emb"]], dim=0)
+
+    def _bipartite_step(self, u: torch.Tensor, i: torch.Tensor):
+        if self.cfg.propagation == "bipartite_sync":
+            # Jacobi: both updates read layer k (lightgcn_cu.py:429-439)
+            return self.user_from_item(i), self.item_from_user(u)
+        # gauss_seidel (lightgcn_cu_message.py:421-423)
+        i = self.item_from_user(u)
+        return self.user_from_item(i), i
+
+    def propagate(self, params: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+        K = self.cfg.num_layers
+        prop_dtype = self._prop_dtype()
+        if self.cfg.propagation == "symmetric":
+            x = self._joint_table(params).to(prop_dtype)
+            acc = x.float()
+            for _ in range(K):
+                x = self.joint_op(x)
+                acc = acc + x.float()
+            final = acc / (K + 1)
+            return final[:self.num_users], final[self.num_users:]
+
+        u, i = ego_tables(params, self.num_users)
+        u = u.to(prop_dtype)
+        i = i.to(prop_dtype)
+        acc_u, acc_i = u.float(), i.float()
+        for _ in range(K):
+            u, i = self._bipartite_step(u, i)
+            acc_u = acc_u + u.float()
+            acc_i = acc_i + i.float()
+        return acc_u / (K + 1), acc_i / (K + 1)
+
+    def propagate_rows(self, params: Params, user_rows: torch.Tensor,
+                       item_rows: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer-mean embeddings for SELECTED rows only.
+
+        Row-gather commutes with the per-layer accumulation bit-exactly
+        (``(sum_k x_k)[r] == sum_k x_k[r]`` elementwise, same fp order), so
+        a caller that needs a few rows skips the full-size combined tables.
+        """
+        K = self.cfg.num_layers
+        prop_dtype = self._prop_dtype()
+        if self.cfg.propagation == "symmetric":
+            x = self._joint_table(params).to(prop_dtype)
+            iid = item_rows + self.num_users
+            au = x[user_rows].float()
+            ai = x[iid].float()
+            for _ in range(K):
+                x = self.joint_op(x)
+                au = au + x[user_rows].float()
+                ai = ai + x[iid].float()
+            return au / (K + 1), ai / (K + 1)
+
+        u, i = ego_tables(params, self.num_users)
+        u = u.to(prop_dtype)
+        i = i.to(prop_dtype)
+        au = u[user_rows].float()
+        ai = i[item_rows].float()
+        for _ in range(K):
+            u, i = self._bipartite_step(u, i)
+            au = au + u[user_rows].float()
+            ai = ai + i[item_rows].float()
+        return au / (K + 1), ai / (K + 1)
+
+    # -- scoring ----------------------------------------------------------
+
+    @staticmethod
+    def score(user_emb: torch.Tensor, item_emb: torch.Tensor,
+              users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+        """Eq 3.26: dot-product (lightgcn_cu.py:450-454)."""
+        return torch.sum(user_emb[users] * item_emb[items], dim=-1)
+
+    @staticmethod
+    def score_all_items(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                        users: torch.Tensor) -> torch.Tensor:
+        """(B, I) dense scores for full-catalog evaluation
+        (lightgcn.py:483)."""
+        return user_emb[users] @ item_emb.T

@@ -1,0 +1,146 @@
+"""The PyTorch package's CLI against the JAX package's, and its imports.
+
+``evaluate --device cpu`` with ``eval_mode=full`` on a saved graph and a
+JAX-written ``best_model.npz`` must print the same metric block as the JAX
+CLI (full mode has no random stream, so the strings are compared exactly).
+"""
+
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu.cli import main as j_cli
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu.train.checkpoint import save_params_npz
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.cli import main as t_cli
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX_PKG = ("beyond_binary_fake_user_detection_a_credibility_aware_graph_"
+           "based_recommender_system_tpu")
+PORT_PKG = JAX_PKG + "_torch"
+
+
+@pytest.fixture(scope="module")
+def saved(small_graph, tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    small_graph.save_npz(d / "graph.npz")
+    rng = np.random.default_rng(0)
+    save_params_npz(d / "best_model.npz", {
+        "user_emb": rng.normal(0, 0.1, (small_graph.num_users, 8)
+                               ).astype(np.float32),
+        "item_emb": rng.normal(0, 0.1, (small_graph.num_items, 8)
+                               ).astype(np.float32)})
+    np.save(d / "cred.npy", rng.uniform(0.2, 1.0, small_graph.num_users))
+    return d
+
+
+def _metric_lines(out: str):
+    return [ln for ln in out.splitlines() if "metrics:" in ln or "K=" in ln]
+
+
+def test_evaluate_full_matches_jax_cli(saved, capsys):
+    j_cli.main(["merge-user-ids", "--npy", str(saved / "cred.npy"),
+                "--graph", str(saved / "graph.npz"),
+                "--out", str(saved / "cred.csv")])
+    args = ["evaluate", "--graph", str(saved / "graph.npz"),
+            "--params", str(saved / "best_model.npz"),
+            "--preset", "cu_message", "--cred", str(saved / "cred.csv"),
+            "emb_dim=8", "eval_mode=full"]
+    capsys.readouterr()
+    j_cli.main(args)
+    j_out = capsys.readouterr().out
+    res = t_cli.run(args + ["--device", "cpu"])
+    t_out = capsys.readouterr().out
+    assert _metric_lines(t_out) == _metric_lines(j_out)
+    assert len(_metric_lines(t_out)) == 3
+    j_json = json.loads(j_out.strip().splitlines()[-1])
+    t_json = json.loads(t_out.strip().splitlines()[-1])
+    for K in j_json:
+        for m in ("precision", "recall", "ndcg"):
+            assert t_json[K][m] == pytest.approx(j_json[K][m], abs=1e-6)
+            assert res[int(K)][m] == t_json[K][m]
+
+
+def test_evaluate_sampled_runs_on_cpu(saved, capsys):
+    res = t_cli.run(["evaluate", "--graph", str(saved / "graph.npz"),
+                     "--params", str(saved / "best_model.npz"),
+                     "--preset", "cu_message", "emb_dim=8",
+                     "--device", "cpu"])
+    assert res[20]["mode"] == "sampled(1pos+neg)"
+    assert 0.0 <= res[20]["recall"] <= 1.0
+    # the console entry point returns None, so sys.exit(main()) exits 0
+    assert t_cli.main(["evaluate", "--graph", str(saved / "graph.npz"),
+                       "--params", str(saved / "best_model.npz"),
+                       "--preset", "cu_message", "emb_dim=8",
+                       "--device", "cpu"]) is None
+
+
+def test_merge_user_ids_same_csv(saved, tmp_path):
+    base = ["merge-user-ids", "--npy", str(saved / "cred.npy"),
+            "--graph", str(saved / "graph.npz")]
+    j_cli.main(base + ["--out", str(tmp_path / "j.csv")])
+    t_cli.main(base + ["--out", str(tmp_path / "t.csv"), "--device", "cpu"])
+    assert (tmp_path / "j.csv").read_text() == (tmp_path / "t.csv").read_text()
+
+
+def test_build_graph_same_npz(tmp_path):
+    recs = [{"user_id": f"u{k % 7}", "parent_asin": f"i{(k * 5) % 11}",
+             "rating": 3 + k % 3, "text": "fine", "timestamp": k}
+            for k in range(120)]
+    (tmp_path / "r.jsonl").write_text(
+        "\n".join(json.dumps(r) for r in recs) + "\n{bad json\n")
+    j_cli.main(["build-graph", "--jsonl", str(tmp_path / "r.jsonl"),
+                "--out", str(tmp_path / "j"), "backend=python"])
+    t_cli.main(["build-graph", "--jsonl", str(tmp_path / "r.jsonl"),
+                "--out", str(tmp_path / "t"), "--device", "cpu"])
+    a, b = (np.load(tmp_path / d / "graph.npz", allow_pickle=True)
+            for d in ("j", "t"))
+    for k in a.files:
+        assert np.array_equal(a[k], b[k]), k
+
+
+def test_default_device_is_cuda(saved):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_cli.main(["evaluate", "--graph", str(saved / "graph.npz"),
+                    "--params", str(saved / "best_model.npz")])
+
+
+def test_training_commands_not_registered():
+    for cmd in ("train-rec", "train-cred"):
+        with pytest.raises(SystemExit):
+            t_cli.build_parser().parse_args([cmd])
+
+
+def test_port_imports_without_jax():
+    mods = sorted(
+        PORT_PKG + "." + ".".join(p.relative_to(ROOT / PORT_PKG)
+                                  .with_suffix("").parts)
+        for p in (ROOT / PORT_PKG).rglob("*.py") if p.name != "__main__.py")
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['jaxlib'] = None; import importlib; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
+            "import chip_smoke; "
+            f"bad = [m for m in sys.modules if m.startswith({JAX_PKG!r}) "
+            f"and not m.startswith({PORT_PKG!r})]; "
+            "assert not bad, bad; print(len(sys.modules))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert len(mods) > 20
+
+
+def test_no_port_source_names_jax():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|optax|orbax|" + JAX_PKG + r")\b"
+        r"(?!_torch)", re.M)
+    files = list((ROOT / PORT_PKG).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for p in files:
+        assert not pattern.search(p.read_text()), p
