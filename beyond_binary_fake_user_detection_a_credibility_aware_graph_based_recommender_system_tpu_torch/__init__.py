@@ -5,12 +5,14 @@ The JAX package beside it
 is the reference; this package keeps its sub-package and module names so
 each module's counterpart is easy to find, imports ``torch`` and never
 ``jax``, and runs its entry points on the CUDA device unless the caller asks
-for the CPU.  Its one hand-written kernel is the weighted segment-sum SpMM
-(``ops/spmm_cuda.py``, ``csrc/segment_spmm.cu``).
+for the CPU.  Its hand-written kernels are the weighted segment-sum SpMM
+(``ops/spmm_cuda.py``, ``csrc/segment_spmm.cu``), which is also its own
+backward, and the fused Adam update (``ops/adam_cuda.py``,
+``csrc/fused_adam.cu``).
 
-This slice serves: ``evaluate`` on saved parameters, the full-catalog and
-sampled rankings, and ``eval.retrieval.topk_for_users``.  Training is a
-later slice.
+Stage B is ported: ``train-rec`` / ``RecTrainer.fit`` (BPR training with
+checkpoints), ``evaluate`` on saved parameters, the full-catalog and sampled
+rankings, and ``eval.retrieval.topk_for_users``.  Stage A is a later slice.
 
     import beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch as bbt
 """

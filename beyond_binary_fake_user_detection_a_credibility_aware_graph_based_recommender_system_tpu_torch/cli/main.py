@@ -3,11 +3,14 @@
     python -m beyond_binary_..._tpu_torch.cli build-graph --jsonl R.jsonl --out D/
     python -m ..._tpu_torch.cli merge-user-ids --npy cred.npy --graph D/graph.npz
                                                --out D/cred.csv
+    python -m ..._tpu_torch.cli train-rec --graph D/graph.npz --preset cu_message
+                                          [--cred D/cred.csv] [--out D/rec]
+                                          [--checkpoint [--resume]] [k=v ...]
     python -m ..._tpu_torch.cli evaluate --graph D/graph.npz --params best.npz
                                          --preset cu_message [k=v ...]
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs on the
-CPU).  ``train-rec`` and ``train-cred`` come with the training slices.
+CPU).  ``train-cred`` (Stage A) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -57,6 +60,38 @@ def cmd_merge_user_ids(args):
     print(f"Saved {args.out} ({len(cred)} users)")
 
 
+def cmd_train_rec(args):
+    """Trains, writes OUT/best_model.npz, OUT/test_metrics.json and (from
+    ``fit``) OUT/metrics.jsonl; returns the ``FitResult``."""
+    from ..configs.presets import get_preset
+    from ..graph.build import BipartiteGraph
+    from ..train.checkpoint import TrainCheckpointer, save_params_npz
+    from ..train.trainer import RecTrainer
+
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: the port trains on one device; sharded training is "
+            "ROADMAP.md Queue 1 item 11 (parallel/)")
+    cfg = get_preset(args.preset).with_overrides(args.overrides)
+    if args.cred:
+        cfg = cfg.replace(cred_csv_path=args.cred)
+    if args.out:
+        cfg = cfg.replace(out_dir=args.out)
+    graph = BipartiteGraph.load_npz(args.graph)
+    print(f"Loaded edges. {graph.summary()}")
+    trainer = RecTrainer(cfg, graph, device=args.device)
+    ck = TrainCheckpointer(Path(args.out) / "ckpt",
+                           keep=args.ckpt_keep, every=args.ckpt_every) if (
+        args.out and args.checkpoint) else None
+    result = trainer.fit(checkpointer=ck, resume=args.resume)
+    if args.out:
+        save_params_npz(Path(args.out) / "best_model.npz", result.best_params)
+        with open(Path(args.out) / "test_metrics.json", "w") as f:
+            json.dump({str(k): v for k, v in result.test_metrics.items()}, f,
+                      indent=2, default=float)
+    return result
+
+
 def cmd_evaluate(args):
     """Prints the metric block and a JSON line; returns the metrics."""
     from ..configs.presets import get_preset
@@ -96,6 +131,23 @@ def build_parser():
     _add_device(p)
     p.set_defaults(fn=cmd_merge_user_ids)
 
+    p = sub.add_parser("train-rec", help="Stage B: train a LightGCN variant")
+    p.add_argument("--graph", required=True)
+    p.add_argument("--preset", default="vanilla")
+    p.add_argument("--cred", default=None)
+    p.add_argument("--out", default=None)
+    p.add_argument("--checkpoint", action="store_true",
+                   help="full-state checkpoints under OUT/ckpt")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest OUT/ckpt state")
+    p.add_argument("--mesh", default=None,
+                   help="not supported yet: training runs on one device")
+    p.add_argument("--ckpt-keep", type=int, default=3)
+    p.add_argument("--ckpt-every", type=int, default=1)
+    _add_device(p)
+    _add_overrides(p)
+    p.set_defaults(fn=cmd_train_rec)
+
     p = sub.add_parser("evaluate", help="evaluate saved params")
     p.add_argument("--graph", required=True)
     p.add_argument("--params", required=True)
@@ -110,7 +162,7 @@ def build_parser():
 
 def run(argv=None):
     """Run one command; returns what the command returns (``evaluate``:
-    its metrics dict)."""
+    its metrics dict; ``train-rec``: its ``FitResult``)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

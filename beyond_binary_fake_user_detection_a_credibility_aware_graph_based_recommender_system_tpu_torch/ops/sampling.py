@@ -1,4 +1,4 @@
-"""Vectorized on-device samplers used by evaluation.
+"""Vectorized on-device samplers of training and evaluation.
 
 The reference samples in per-user Python rejection loops
 (reference lightgcn.py:289-300, :415-430).  Here sampling runs on the
@@ -8,11 +8,13 @@ device, whole batch at once:
     fixed-depth binary search over the per-user *sorted* CSR rows;
   * rejection loops become a bounded number of batched redraw rounds —
     distribution-equivalent to the reference's sequential rejection, not
-    bit-equivalent.
+    bit-equivalent;
+  * the popularity mixture draws from pop^gamma via a Walker/Vose alias
+    table built in float64 on the host (O(1) per draw; a float32
+    inverse-CDF would make tail items unsamplable at 10M-item catalogs).
 
 Random numbers come from an explicit ``torch.Generator`` on the device the
-draws are made on.  The negative samplers of training, the popularity
-mixture and Gumbel top-k come with the training slice.
+draws are made on.  Gumbel top-k comes with Stage A.
 """
 
 from __future__ import annotations
@@ -124,3 +126,122 @@ def sample_candidate_set(gen: torch.Generator, reject_csrs,
         bad = bad | row_contains(csr, rows, cand.reshape(B, -1))
     good = ~bad.reshape(cand.shape)[..., :rounds]
     return _first_good(cand, good)
+
+
+def sample_negatives_uniform(gen: torch.Generator, csr: DeviceCSR,
+                             rows: torch.Tensor, num_items: int,
+                             rounds: int = 8) -> torch.Tensor:
+    """Batched-rejection uniform negatives (reference lightgcn.py:296-300).
+
+    ``rounds`` bounded redraw rounds; the residual collision probability
+    after r rounds is (deg/I)^r.  All rounds are drawn up front and share
+    ONE fused membership test: the selected item is the first non-member
+    among iid draws, the same distribution as check-and-redraw."""
+    cand = torch.randint(0, num_items, rows.shape + (rounds + 1,),
+                         generator=gen, device=rows.device)
+    good = ~row_contains(csr, rows, cand[..., :rounds])
+    return _first_good(cand, good)
+
+
+def build_alias_table(prob: np.ndarray):
+    """Exact Walker/Vose alias table in float64 (``JAX: ops/sampling.py``).
+
+    Returns ``(accept, alias)``: draw bucket j uniformly, keep j with
+    probability ``accept[j]`` else emit ``alias[j]``.  Each round pairs
+    every remaining deficit bucket ("small", scaled < 1) with one surplus
+    bucket ("large"); a large that dips below 1 rejoins the smalls.  When a
+    handful of heavy buckets remain against many smalls, each large absorbs
+    a contiguous run of smalls found by searchsorted over the cumulative
+    deficits (the same arithmetic as running the rounds out).
+    """
+    prob = np.asarray(prob, np.float64)
+    n = prob.shape[0]
+    scaled = prob * (n / prob.sum())
+    accept = np.ones(n, np.float64)
+    alias = np.arange(n, dtype=np.int64)
+
+    small = np.nonzero(scaled < 1.0)[0]
+    large = np.nonzero(scaled >= 1.0)[0]
+    while small.size and large.size:
+        if large.size <= 8 < small.size:
+            # chunked endgame: absorb runs of smalls per large
+            deficits = 1.0 - scaled[small]
+            pos = 0
+            li = 0
+            while li < large.size and pos < small.size:
+                j = large[li]
+                cum = np.cumsum(deficits[pos:])
+                k = int(np.searchsorted(cum, scaled[j] - 1.0, side="left"))
+                k = min(k, cum.shape[0] - 1)
+                run = small[pos:pos + k + 1]
+                accept[run] = scaled[run]
+                alias[run] = j
+                scaled[j] -= cum[k]
+                if scaled[j] < 1.0 and li + 1 < large.size:
+                    # j became a small: hand its deficit to the next large
+                    small = np.append(small, j)
+                    deficits = np.append(deficits, 1.0 - scaled[j])
+                pos += k + 1
+                li += 1
+            # float residue: any leftovers keep accept=1 (self-alias)
+            break
+        k = min(small.size, large.size)
+        s, l = small[:k], large[:k]
+        accept[s] = scaled[s]
+        alias[s] = l
+        scaled[l] -= 1.0 - scaled[s]
+        still_large = scaled[l] >= 1.0
+        small = np.concatenate([small[k:], l[~still_large]])
+        large = np.concatenate([large[k:], l[still_large]])
+    return accept, alias
+
+
+@dataclass(frozen=True)
+class PopMixSampler:
+    """Method E popularity-mixture negative sampler
+    (Version-2/lighgcn_cu_pop.py:349-376; dist built :805-814).
+
+    With probability ``mix_pop`` draw from p(i) ∝ (deg_i+1)^gamma via an
+    alias table, else uniform; reject interacted items with bounded redraws
+    and a final uniform fallback round."""
+    accept: torch.Tensor      # (I,) float32 alias accept thresholds
+    alias: torch.Tensor       # (I,) int64 alias targets
+    mix_pop: float
+    num_items: int
+
+    @classmethod
+    def build(cls, item_train_degrees: np.ndarray, device,
+              mix_pop: float = 0.7, gamma: float = 0.75) -> "PopMixSampler":
+        pop = np.power(np.asarray(item_train_degrees, np.float64) + 1.0, gamma)
+        accept, alias = build_alias_table(pop)
+        return cls(accept=torch.as_tensor(accept.astype(np.float32),
+                                          device=device),
+                   alias=torch.as_tensor(alias, device=device),
+                   mix_pop=float(mix_pop),
+                   num_items=int(item_train_degrees.shape[0]))
+
+    def draw(self, gen: torch.Generator, shape, device) -> torch.Tensor:
+        use_pop = torch.rand(shape, generator=gen, device=device) < self.mix_pop
+        bucket = torch.randint(0, self.num_items, shape, generator=gen,
+                               device=device)
+        keep = torch.rand(shape, generator=gen, device=device) \
+            < self.accept[bucket]
+        pop_draw = torch.where(keep, bucket, self.alias[bucket])
+        uni_draw = torch.randint(0, self.num_items, shape, generator=gen,
+                                 device=device)
+        return torch.where(use_pop, pop_draw, uni_draw)
+
+
+def sample_negatives_popmix(gen: torch.Generator, csr: DeviceCSR,
+                            rows: torch.Tensor, sampler: PopMixSampler,
+                            rounds: int = 8) -> torch.Tensor:
+    """Pop-mix negatives with bounded redraws and a final uniform fallback
+    for residual collisions (reference Version-2/lighgcn_cu_pop.py:372-376):
+    the first non-member among iid mixture draws, else an unchecked
+    uniform draw."""
+    cand = sampler.draw(gen, rows.shape + (rounds + 1,), rows.device)
+    good = ~row_contains(csr, rows, cand)
+    chosen = _first_good(cand, good)
+    fallback = torch.randint(0, sampler.num_items, rows.shape, generator=gen,
+                             device=rows.device)
+    return torch.where(good.any(dim=-1), chosen, fallback)

@@ -10,6 +10,12 @@ Each direction of an operator is a destination-sorted CSR (``indptr``,
 hand-written CUDA kernel for CUDA tensors, its plain PyTorch version on the
 CPU or under ``backend="torch"``.  Edges keep their input order within a
 destination row (stable sort), which fixes each row's summation order.
+
+Both are differentiable in their input through :class:`_SpmmFn`, whose
+backward is the same kernel on the other direction: ``dx = A^T @ g``
+(``JAX: ops/spmm.py:92-110``).  The weights are constants of the operator.
+The product itself always runs without autograd, so no ``index_add_`` of
+the plain version is ever differentiated.
 """
 
 from __future__ import annotations
@@ -49,6 +55,20 @@ class CsrDirection:
             num_src=int(num_src), num_dst=int(num_dst))
 
 
+class _SpmmFn(torch.autograd.Function):
+    """``y = op._run(fwd_dir, x)`` with ``dx = op._run(bwd_dir, g)``."""
+
+    @staticmethod
+    def forward(ctx, x, op, fwd_dir, bwd_dir):
+        ctx.op, ctx.bwd_dir = op, bwd_dir
+        with torch.no_grad():
+            return op._run(fwd_dir, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.op._run(ctx.bwd_dir, grad.contiguous()), None, None, None
+
+
 class SpmmOperator:
     """A fixed sparse operator ``y = A @ x`` with a fused per-edge weight.
 
@@ -84,11 +104,11 @@ class SpmmOperator:
                             out_dtype=x.dtype)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        return self._run(self.fwd, x)
+        return _SpmmFn.apply(x, self, self.fwd, self.bwd)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(x)
 
     def transpose_apply(self, y: torch.Tensor) -> torch.Tensor:
         """y -> A^T @ y (the pre-planned backward direction)."""
-        return self._run(self.bwd, y)
+        return _SpmmFn.apply(y, self, self.bwd, self.fwd)

@@ -7,8 +7,8 @@ replaces the JAX package's Pallas kernels ``_segment_kernel`` and
 an H100 (bytes) and what its design does about that.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/torch_kernels/`` (named by the source's hash, so an edited source is
-rebuilt) and loaded with ``ctypes``.  :data:`KERNEL` counts its launches.
+``build/torch_kernels/`` and loaded with ``ctypes`` (``ops/cuda_build.py``).
+:data:`KERNEL` counts its launches.
 
 :func:`segment_spmm_reference` is the plain PyTorch version with the same
 arithmetic as the Pallas kernel: in bf16 mode the weights are rounded to
@@ -22,21 +22,14 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "segment_spmm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+from .cuda_build import CSRC, CudaKernel
+
+SOURCE = CSRC / "segment_spmm.cu"
 MAX_D = 256          # the widest row the kernel's register tile holds
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def segment_spmm_reference(indptr: torch.Tensor, src: torch.Tensor,
@@ -55,58 +48,14 @@ def segment_spmm_reference(indptr: torch.Tensor, src: torch.Tensor,
     return y.to(out_dtype or x.dtype)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if not cand.exists():
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/segment_spmm.cu")
-    return str(cand)
-
-
-class SegmentSpmmKernel:
+class SegmentSpmmKernel(CudaKernel):
     """The compiled kernel and its launch counter (``launches``)."""
 
     def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(SOURCE.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"libsegment_spmm_{digest[:16]}.so"
-
-    def build(self) -> Path:
-        """Compile the source unless this source's library already exists."""
-        lib = self.library_path()
-        if lib.exists():
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{self.build_log}")
-        os.replace(tmp, lib)
-        return lib
-
-    def _load(self):
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                lib.segment_spmm.argtypes = (
-                    [ctypes.c_void_p] * 5
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p])
-                lib.segment_spmm.restype = ctypes.c_int
-                self._lib = lib
-        return self._lib
+        super().__init__(SOURCE, "segment_spmm",
+                         [ctypes.c_void_p] * 5
+                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, indptr: torch.Tensor, src: torch.Tensor,
                  w: torch.Tensor, x: torch.Tensor,
@@ -137,16 +86,12 @@ class SegmentSpmmKernel:
         y = torch.empty(num_dst, D, dtype=out_dtype, device=dev)
         if num_dst == 0:
             return y
-        lib = self._load()
         with torch.cuda.device(dev):
-            rc = lib.segment_spmm(
+            self._launch(
                 indptr.data_ptr(), src.data_ptr(), w.data_ptr(),
                 x.data_ptr(), y.data_ptr(), num_dst, D,
                 int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
                 torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"segment_spmm launch failed: cudaError {rc}")
-        self.launches += 1
         return y
 
 

@@ -169,10 +169,10 @@ class RecConfig(ConfigBase):
     # "per_epoch" caches it across an epoch (fast mode).
     propagation_schedule: str = "per_batch"
 
-    # SpMM backend: "auto" launches the hand-written CUDA kernel for a CUDA
-    # tensor and runs the plain PyTorch version for a CPU tensor; "torch"
-    # forces the plain version (the reference run that the kernel is held
-    # against).  "bf16" precision quantizes the SpMM messages and weights
+    # Kernel backend: "auto" launches the hand-written CUDA kernels (the
+    # SpMM and, in training, the fused Adam update) for CUDA tensors and
+    # runs their plain PyTorch versions for CPU tensors; "torch" forces the
+    # plain versions (the reference run that the kernels are held against).  "bf16" precision quantizes the SpMM messages and weights
     # to bfloat16 with fp32 per-destination accumulation, as the JAX
     # package's Pallas kernel does; fp32 is the reference-parity default.
     spmm_backend: str = "auto"        # "auto" | "torch"

@@ -4,12 +4,16 @@
     python3 chip_smoke.py [--out results.json]
 
 Phases (each prints one line; any failure exits non-zero):
-  1. the card's name and power limit (nvidia-smi), and the kernel's build
-     from ``csrc/segment_spmm.cu`` with nvcc for sm_90a;
-  2. the kernel against its plain PyTorch version on the card: random
+  1. the card's name and power limit (nvidia-smi), and the two kernels'
+     builds from ``csrc/segment_spmm.cu`` and ``csrc/fused_adam.cu`` (one
+     nvcc per source, for sm_90a, started together);
+  2. the SpMM kernel against its plain PyTorch version on the card: random
      edges, empty rows, duplicate edges, a zero-edge operator and a Zipf hub
      graph, at D in {8, 64, 128}, fp32 and bf16; two launches must be
      bit-identical;
+  2b. the fused Adam kernel against its plain version on the card: leaves of
+     the two reference-scale tables, (1, 1), (1001, 3) and a misaligned
+     view, at t = 1 and t = 1000; two launches must be bit-identical;
   3. the serving slice at full width: the reference-scale graph
      (58,867 users, 261,728 items), the cu_message preset (D=64, K=3), the
      CLI's merge-user-ids, then evaluate --split test in sampled and full
@@ -19,7 +23,21 @@ Phases (each prints one line; any failure exits non-zero):
      card: propagated tables, metrics and top-20 sets must agree;
   5. times (CUDA events) of each operator direction through the kernel, the
      plain version and torch.sparse.mm, one propagate, and one sampled and
-     one full evaluate.
+     one full evaluate;
+  6. the training slice at full width: the CLI's train-rec with the
+     cu_message preset (D=64, K=3, batch 4096: 15 steps per epoch) for 2
+     epochs with checkpoints; the launch counters must show 12 SpMM and 2
+     Adam launches per step plus 6 SpMM per evaluation; the losses must be
+     finite and evaluate on the written best_model.npz must reproduce
+     test_metrics.json;
+  7. 3 train steps from one set of parameters and batches through the
+     kernels and through the plain path (spmm_backend=torch): parameters
+     within rtol 1e-5 / atol 1e-6, losses within 1e-6; two kernel-path
+     runs bit-identical;
+  8. times (CUDA events, host clock for the epoch): one train step split
+     into forward+loss, backward and Adam; each backward SpMM direction;
+     the Adam kernel per table against its plain version,
+     torch.optim.Adam(fused=True) and its bound; one epoch.
 
 It imports nothing of the JAX package.  It needs one CUDA card and exits
 non-zero without one.  The line before the last holds the kernels' JSON; the
@@ -44,14 +62,26 @@ REPLACES = ("beyond_binary_fake_user_detection_a_credibility_aware_graph_"
             "based_recommender_system_tpu/ops/spmm_pallas.py:406 "
             "(_segment_kernel, K1) and :427 (_window_kernel, K2); "
             "pallas_call at :500")
+REPLACES_ADAM = ("scripts/probe_fused_adam.py:71 (pallas_adam_leaf, P5; body "
+                 "_adam_kernel :60); pallas_call at :79")
+# the reference-scale graph (bench.py --scale ref)
+GRAPH = dict(num_users=58_867, num_items=261_728, edges_per_user=7.9, seed=0,
+             power=1.0)
+TRAIN_EPOCHS = 2
+PARITY_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+ADAM_BYTES = 28               # per element: read p, g, m, v; write p, m, v
+ADAM_FLOPS = 13               # per element: 3 for m, 4 for v, 3 + 3 for p
 # fp32: |kernel - plain| <= FP32_ATOL + FP32_RTOL * sum_e |w_e * x_src(e)|,
 # the summation error bound (the plain version on the card sums with atomics
 # in another order, so a cancelling sum of O(1) terms can end near 0 with an
 # absolute error of a few 1e-6)
 FP32_RTOL, FP32_ATOL = 1e-5, 1e-6
 BF16_ROW_TOL = 2e-2           # |kernel - plain| <= 2e-2 * max|plain row|
+# training, kernel path vs plain path: the SpMM sums in another order (the
+# plain path's index_add_), Adam divides by sqrt(v) + eps
+TRAIN_RTOL, TRAIN_ATOL, LOSS_ATOL = 1e-5, 1e-6, 1e-6
 
 
 def log(msg: str) -> None:
@@ -219,8 +249,7 @@ def phase_slice(dev, tmp: Path) -> dict:
     sc = import_module(f"{PKG}.ops.spmm_cuda")
 
     t0 = time.perf_counter()
-    graph = build.synthetic_bipartite_graph(58_867, 261_728, 7.9, seed=0,
-                                            power=1.0)
+    graph = build.synthetic_bipartite_graph(**GRAPH)
     cred = np.random.default_rng(0).uniform(
         0.2, 1.0, graph.num_users).astype(np.float32)
     cfg = presets.get_preset("cu_message")
@@ -234,12 +263,13 @@ def phase_slice(dev, tmp: Path) -> dict:
 
     cli.run(["merge-user-ids", "--npy", str(tmp / "cred.npy"),
               "--graph", str(tmp / "graph.npz"),
-              "--out", str(tmp / "cred.csv")])
+              "--out", str(tmp / "cred.csv"), "--device", str(dev)])
     # every trainer below reads the same CSV as the CLI's evaluate
     cfg = cfg.replace(cred_csv_path=str(tmp / "cred.csv"))
     base = ["evaluate", "--graph", str(tmp / "graph.npz"),
             "--params", str(tmp / "best_model.npz"), "--preset", "cu_message",
-            "--cred", str(tmp / "cred.csv"), "--split", "test"]
+            "--cred", str(tmp / "cred.csv"), "--split", "test",
+            "--device", str(dev)]
 
     # ---- phase 3: the main path, counted ----
     sc.KERNEL.launches = 0
@@ -368,7 +398,382 @@ def phase_slice(dev, tmp: Path) -> dict:
     return {"launches": launches, "directions": per_dir,
             "propagate_ms": prop_ms, "propagate_plain_ms": prop_plain_ms,
             "evaluate_ms": evals, "metrics_sampled": res_s,
-            "metrics_full": res_f, "jaccard_mean": float(jac.mean())}
+            "metrics_full": res_f, "jaccard_mean": float(jac.mean()),
+            "_ctx": {"graph": graph, "cfg": cfg, "params_np": params_np}}
+
+# --------------------------------------------------------------------------
+# phase 2b
+# --------------------------------------------------------------------------
+
+def _ulps(a, b) -> int:
+    """Largest distance in units of the last place between two fp32
+    tensors of one sign pattern (0 when bit-identical)."""
+    import torch
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def phase_adam_vs_plain(dev) -> dict:
+    import torch
+    from importlib import import_module
+    ac = import_module(f"{PKG}.ops.adam_cuda")
+    adam = import_module(f"{PKG}.ops.adam")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(GRAPH["num_users"], 64), (GRAPH["num_items"], 64), (1, 1),
+              (1001, 3), (4099,)]
+    worst = {"max_abs_err": 0.0, "max_ulp": 0}
+    n = 0
+    for shape in shapes:
+        for t in (1, 1000):
+            numel = int(np.prod(shape))
+            # the last shape is a 1-D view one float off 16-byte alignment
+            # (the kernel's scalar path)
+            base = [torch.randn(numel + 1, device=dev, generator=gen)
+                    for _ in range(4)]
+            p, g, m, v = (x[1:].view(shape) if len(shape) == 1 else
+                          x[:numel].view(shape) for x in base)
+            g.mul_(1e-2)
+            v.abs_().mul_(1e-4 if t > 1 else 0.0)
+            m.mul_(1e-2 if t > 1 else 0.0)
+            a, b = adam.adam_scalars(t, 1e-3)
+            ref = [x.clone() for x in (p, g, m, v)]
+            k2 = [x.clone() for x in (p, g, m, v)]      # 16-byte aligned
+            k1 = [p, g, m, v]          # in place; misaligned for the 1-D view
+            ac.fused_adam_reference(*ref, a, b)
+            ac.KERNEL(*k1, a, b)
+            ac.KERNEL(*k2, a, b)
+            torch.cuda.synchronize()
+            tag = f"adam {shape} t={t}"
+            for name, i in (("p", 0), ("m", 2), ("v", 3)):
+                if not torch.equal(k1[i], k2[i]):
+                    raise AssertionError(f"{tag}: two launches differ in "
+                                         f"{name}")
+                if not torch.isfinite(k1[i]).all():
+                    raise AssertionError(f"{tag}: non-finite {name}")
+                err = float((k1[i] - ref[i]).abs().max())
+                ulp = _ulps(k1[i], ref[i])
+                worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                worst["max_ulp"] = max(worst["max_ulp"], ulp)
+                if ulp > 2:
+                    raise AssertionError(f"{tag}: {name} differs from the "
+                                         f"plain version by {ulp} ulp")
+            n += 1
+    log(f"[phase 2b] fused Adam kernel vs plain: {n} cases (shapes {shapes}, "
+        f"t 1/1000, the last a misaligned view) ok, bit-identical reruns; "
+        f"bit-identical to the plain version: {worst['max_ulp'] == 0} "
+        f"(max {worst['max_ulp']} ulp, max abs err {worst['max_abs_err']:.3g})")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phases 6-8: training
+# --------------------------------------------------------------------------
+
+def phase_train(dev, tmp: Path, ctx: dict) -> dict:
+    import torch
+    from importlib import import_module
+    cli = import_module(f"{PKG}.cli.main")
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    ac = import_module(f"{PKG}.ops.adam_cuda")
+    graph, cfg = ctx["graph"], ctx["cfg"]
+    K = cfg.num_layers
+    n_train = int((graph.user_csr("train").degrees() > 0).sum())
+    nb = -(-n_train // cfg.batch_size)
+    n_evals = TRAIN_EPOCHS // cfg.eval_every + 1      # val per epoch + test
+    out = tmp / "rec"
+
+    # ---- the main path, counted ----
+    sc.KERNEL.launches = 0
+    ac.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = cli.run(["train-rec", "--graph", str(tmp / "graph.npz"),
+                   "--preset", "cu_message", "--cred", str(tmp / "cred.csv"),
+                   "--out", str(out), "--checkpoint", "--device", str(dev),
+                   f"epochs={TRAIN_EPOCHS}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spmm_n, adam_n = sc.KERNEL.launches, ac.KERNEL.launches
+    want_spmm = 4 * K * nb * TRAIN_EPOCHS + 2 * K * n_evals
+    want_adam = 2 * nb * TRAIN_EPOCHS
+    if (spmm_n, adam_n) != (want_spmm, want_adam):
+        raise AssertionError(
+            f"launches: segment_spmm {spmm_n} (expected {want_spmm} = "
+            f"{4 * K} x {nb} steps x {TRAIN_EPOCHS} epochs + {2 * K} x "
+            f"{n_evals} evaluations), fused_adam {adam_n} (expected "
+            f"{want_adam} = 2 x {nb} x {TRAIN_EPOCHS})")
+
+    losses = [h.loss for h in res.history]
+    if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)):
+        raise AssertionError(f"epoch losses {losses}")
+    for name in ("best_model.npz", "test_metrics.json", "metrics.jsonl"):
+        if not (out / name).is_file():
+            raise AssertionError(f"train-rec wrote no {name}")
+    if not any((out / "ckpt").glob("*.pt")):
+        raise AssertionError("train-rec wrote no checkpoint")
+    written = json.loads((out / "test_metrics.json").read_text())
+    with np.load(out / "best_model.npz") as z:
+        shapes = {k: z[k].shape for k in z.files}
+    if shapes != {"user_emb": (graph.num_users, cfg.emb_dim),
+                  "item_emb": (graph.num_items, cfg.emb_dim)}:
+        raise AssertionError(f"best_model.npz holds {shapes}")
+    ev = cli.run(["evaluate", "--graph", str(tmp / "graph.npz"),
+                  "--params", str(out / "best_model.npz"),
+                  "--preset", "cu_message", "--cred", str(tmp / "cred.csv"),
+                  "--split", "test", "--device", str(dev)])
+    err = _metrics_equal({int(k): v for k, v in written.items()}, ev)
+    log(f"[phase 6] train-rec at reference scale (cu_message D={cfg.emb_dim} "
+        f"K={K} batch {cfg.batch_size}: {nb} steps per epoch): "
+        f"{TRAIN_EPOCHS} epochs in {wall:.1f}s, epoch losses "
+        f"{[round(x, 6) for x in losses]}, epoch seconds "
+        f"{[round(h.seconds, 3) for h in res.history]}, best val "
+        f"R@{max(cfg.Ks)} {res.best_val_recall:.6f}, test R@20 "
+        f"{written['20']['recall']:.6f}; launches segment_spmm {spmm_n} = "
+        f"{4 * K} x {nb} x {TRAIN_EPOCHS} + {2 * K} x {n_evals}, fused_adam "
+        f"{adam_n} = 2 x {nb} x {TRAIN_EPOCHS}; evaluate on best_model.npz "
+        f"reproduces test_metrics.json (diff {err:.3g})")
+    return {"launches": {"segment_spmm": spmm_n, "fused_adam": adam_n},
+            "steps_per_epoch": nb, "epoch_losses": losses,
+            "epoch_seconds": [h.seconds for h in res.history],
+            "train_rec_wall_s": wall, "best_val_recall": res.best_val_recall,
+            "test_metrics": written}
+
+
+def _params(ctx, dev):
+    import torch
+    return {k: torch.as_tensor(v, device=dev).clone()
+            for k, v in ctx["params_np"].items()}
+
+
+def phase_train_parity(dev, tmp: Path, ctx: dict):
+    import torch
+    from importlib import import_module
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    adam = import_module(f"{PKG}.ops.adam")
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    ac = import_module(f"{PKG}.ops.adam_cuda")
+    graph = ctx["graph"]
+    cfg = ctx["cfg"]
+    tr_k = trainer_mod.RecTrainer(cfg, graph, device=dev, verbose=False)
+    tr_p = trainer_mod.RecTrainer(cfg.replace(spmm_backend="torch"), graph,
+                                  device=dev, verbose=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    users, pos, neg, mask = tr_k.draw_epoch(gen)
+    batches = [(users[s], pos[s], neg[s], mask[s]) for s in
+               (i % users.shape[0] for i in range(PARITY_STEPS))]
+
+    def run(tr):
+        params = _params(ctx, dev)
+        opt = adam.adam_init(params)
+        losses = torch.stack([tr.train_step(params, opt, *b)
+                              for b in batches])
+        torch.cuda.synchronize()
+        return params, losses
+
+    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    pk, lk = run(tr_k)
+    got = (sc.KERNEL.launches - before[0], ac.KERNEL.launches - before[1])
+    want = (4 * cfg.num_layers * PARITY_STEPS, 2 * PARITY_STEPS)
+    if got != want:
+        raise AssertionError(f"kernel path launched {got}, expected {want}")
+    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    pp, lp = run(tr_p)
+    if (sc.KERNEL.launches, ac.KERNEL.launches) != before:
+        raise AssertionError("the plain path launched a kernel")
+    pk2, lk2 = run(tr_k)
+
+    loss_err = float((lk - lp).abs().max())
+    if loss_err > LOSS_ATOL or not torch.isfinite(lk).all():
+        raise AssertionError(f"losses differ from the plain path by "
+                             f"{loss_err} > {LOSS_ATOL}")
+    p_err = 0.0
+    for k in pk:
+        diff = (pk[k] - pp[k]).abs()
+        if bool((diff > TRAIN_ATOL + TRAIN_RTOL * pp[k].abs()).any()):
+            raise AssertionError(f"{k} differs from the plain path by "
+                                 f"{float(diff.max())}")
+        p_err = max(p_err, float(diff.max()))
+    moved = min(float((pk[k] - torch.as_tensor(ctx["params_np"][k],
+                                               device=dev)).abs().max())
+                for k in pk)
+    bit = torch.equal(lk, lk2) and all(torch.equal(pk[k], pk2[k]) for k in pk)
+    if not bit:
+        raise AssertionError("two kernel-path runs are not bit-identical")
+    log(f"[phase 7] {PARITY_STEPS} train steps, kernel path vs plain path on "
+        f"the card: losses {[round(float(x), 7) for x in lk]} max diff "
+        f"{loss_err:.3g} (tol {LOSS_ATOL:g}); params max abs diff "
+        f"{p_err:.3g} (tol {TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|ref|; the "
+        f"smallest table moved by {moved:.3g}); two kernel-path runs "
+        f"bit-identical: {bit}")
+    return {"loss_max_diff": loss_err, "param_max_diff": p_err,
+            "bit_identical": bit, "_trainer": tr_k}
+
+
+def phase_train_times(dev, ctx: dict, tr) -> dict:
+    import torch
+    from importlib import import_module
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    adam = import_module(f"{PKG}.ops.adam")
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    ac = import_module(f"{PKG}.ops.adam_cuda")
+    cfg = tr.cfg
+    params = _params(ctx, dev)
+    opt = adam.adam_init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    users, pos, neg, mask = tr.draw_epoch(gen)
+    nb = users.shape[0]
+    batches = [(users[s], pos[s], neg[s], mask[s]) for s in range(nb)]
+
+    # one step split into forward+loss, backward, Adam (CUDA events), over
+    # an epoch's batches after two warm-up steps
+    for b in batches[:2]:
+        tr.train_step(params, opt, *b)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in batches]
+    for e, b in zip(ev, batches):
+        with trainer_mod.deterministic_algorithms():
+            e[0].record()
+            leaves = {k: p.detach().requires_grad_() for k, p in
+                      params.items()}
+            loss = tr._loss_fn(leaves, *b)
+            e[1].record()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            e[2].record()
+            adam.adam_step(params, dict(zip(leaves, grads)), opt, cfg.lr)
+            e[3].record()
+    torch.cuda.synchronize()
+    split = {name: sum(e[i].elapsed_time(e[i + 1]) for e in ev) / len(ev)
+             for i, name in enumerate(("forward_loss", "backward", "adam"))}
+    step_ms = cuda_time_ms(lambda: tr.train_step(params, opt, *batches[0]), 10,
+                           warmup=2)
+
+    # each backward SpMM direction (the transposes), at the cotangent's shape
+    bwd = []
+    for role, d in (("bwd of item<-user (user-row shape)",
+                     tr.model.item_from_user.bwd),
+                    ("bwd of user<-item (item-row shape, hub)",
+                     tr.model.user_from_item.bwd)):
+        x = torch.randn(d.num_src, cfg.emb_dim, device=dev, generator=gen)
+        csr = torch.sparse_csr_tensor(d.indptr, d.src.long(), d.w,
+                                      size=(d.num_dst, d.num_src))
+        deg = d.indptr[1:] - d.indptr[:-1]
+        p1 = cuda_time_ms(lambda: sc.segment_spmm_reference(
+            d.indptr, d.src, d.w, x), 20)
+        k1 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x), 30)
+        k2 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x), 30)
+        p2 = cuda_time_ms(lambda: sc.segment_spmm_reference(
+            d.indptr, d.src, d.w, x), 20)
+        bwd.append({"role": role, "num_dst": d.num_dst, "num_src": d.num_src,
+                    "edges": int(d.src.numel()),
+                    "max_dst_degree": int(deg.max()),
+                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                    "library_ms": cuda_time_ms(
+                        lambda: torch.sparse.mm(csr, x), 20),
+                    "bound_ms": bound_ms(d, cfg.emb_dim, 4)})
+
+    # the Adam kernel per table: plain, kernel, kernel, plain; then
+    # torch.optim.Adam(fused=True) on the same leaf as the yardstick
+    leaves = []
+    a, b = adam.adam_scalars(10, cfg.lr)
+    for name, p0 in params.items():
+        p = p0.clone()
+        g = torch.randn(p.shape, device=dev, generator=gen) * 1e-3
+        m = torch.zeros_like(p)
+        v = torch.zeros_like(p)
+        run_k = lambda: ac.KERNEL(p, g, m, v, a, b)          # noqa: E731
+        run_p = lambda: ac.fused_adam_reference(p, g, m, v, a, b)  # noqa
+        p1 = cuda_time_ms(run_p, 10)
+        k1 = cuda_time_ms(run_k, 30)
+        k2 = cuda_time_ms(run_k, 30)
+        p2 = cuda_time_ms(run_p, 10)
+        q = p0.clone().requires_grad_()
+        q.grad = g.clone()
+        lib = torch.optim.Adam([q], lr=cfg.lr, fused=True)
+        numel = p.numel()
+        leaves.append({
+            "leaf": name, "shape": list(p.shape), "ms": min(k1, k2),
+            "plain_ms": min(p1, p2), "library_ms": cuda_time_ms(lib.step, 30),
+            "bound_ms": 1e3 * max(ADAM_BYTES * numel / HBM_BYTES_PER_S,
+                                  ADAM_FLOPS * numel / FP32_FLOPS)})
+
+    # where the device time of a step goes: a profiled window of 3 steps
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for b in batches[2:5]:
+            tr.train_step(params, opt, *b)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - h0)
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.key[:60]] = (by_kernel.get(e.key[:60], 0.0)
+                                     + e.self_device_time_total / 1e3)
+    device_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    profile_out = {"window_steps": 3, "window_ms": window_ms,
+                   "device_ms": device_ms, "busy_share": device_ms / window_ms,
+                   "top_kernels_ms": dict(top)}
+
+    # the cold start of a fresh process: the first call of
+    # torch.use_deterministic_algorithms (which imports torch._inductor; the
+    # trainer sets ATen's switch instead), then the first and second
+    # deterministic row-gather backward (sorted index_put_) at a step's shapes
+    code = ("import json, time, torch; d = torch.device('cuda', 0); "
+            f"x = torch.randn({GRAPH['num_items']}, {cfg.emb_dim}, device=d, "
+            "requires_grad=True); "
+            f"i = torch.randint(0, {GRAPH['num_items']}, "
+            f"(2 * {cfg.batch_size},), device=d); "
+            "torch.cuda.synchronize(); t = time.perf_counter(); "
+            "torch.use_deterministic_algorithms(True); "
+            "out = [1e3 * (time.perf_counter() - t)]\n"
+            "for _ in range(2):\n"
+            "    torch.cuda.synchronize(); t = time.perf_counter(); "
+            "torch.autograd.grad(x[i].sum(), [x]); torch.cuda.synchronize(); "
+            "out.append(1e3 * (time.perf_counter() - t))\n"
+            "print(json.dumps(out))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, check=True, timeout=300)
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    # one epoch, host clock: the draw (sampling) and the 15 steps
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ep_batches = tr.draw_epoch(gen)
+    torch.cuda.synchronize()
+    h1 = time.perf_counter()
+    loss = float(tr.run_epoch(params, opt, ep_batches).mean().item())
+    h2 = time.perf_counter()
+    if not np.isfinite(loss):
+        raise AssertionError(f"epoch loss {loss}")
+    out = {"step_ms": step_ms, "step_split_ms": split, "steps_per_epoch": nb,
+           "epoch_draw_ms": 1e3 * (h1 - h0), "epoch_steps_ms": 1e3 * (h2 - h1),
+           "epoch_ms": 1e3 * (h2 - h0), "profile": profile_out,
+           "cold_start_ms": dict(zip(("use_deterministic_algorithms",
+                                      "gather_backward_first",
+                                      "gather_backward_second"), cold)),
+           "backward_directions": bwd,
+           "adam_leaves": leaves}
+    log("[phase 8] times (ms): train step " + f"{step_ms:.3f} (forward+loss "
+        f"{split['forward_loss']:.3f}, backward {split['backward']:.3f}, "
+        f"Adam {split['adam']:.3f}); " + "; ".join(
+            f"{e['role']} kernel {e['ms']:.4f} plain {e['plain_ms']:.4f} "
+            f"sparse.mm {e['library_ms']:.4f} bound {e['bound_ms']:.4f}"
+            for e in bwd) + "; " + "; ".join(
+            f"Adam {e['leaf']} {tuple(e['shape'])} kernel {e['ms']:.4f} plain "
+            f"{e['plain_ms']:.4f} optim.Adam(fused) {e['library_ms']:.4f} "
+            f"bound {e['bound_ms']:.4f}" for e in leaves)
+        + f"; epoch {out['epoch_ms']:.1f} (draw {out['epoch_draw_ms']:.1f}, "
+        f"{nb} steps {out['epoch_steps_ms']:.1f}); profiled 3 steps: device "
+        f"busy {device_ms:.2f} of {window_ms:.2f} ms "
+        f"({100 * profile_out['busy_share']:.1f}%), by kernel "
+        + ", ".join(f"{k} {v:.2f}" for k, v in top)
+        + f"; fresh process: first torch.use_deterministic_algorithms "
+        f"{cold[0]:.1f} ms, deterministic gather backward first {cold[1]:.1f} "
+        f"ms, second {cold[2]:.2f} ms")
+    return out
 
 
 def main(argv=None) -> int:
@@ -382,36 +787,59 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    return run(torch.device("cuda", 0), args.out)
+
+
+def run(dev, out_path=None) -> int:
+    """Every phase on ``dev``; prints the kernels' line and the last line."""
+    import torch
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
+    from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
     sc = import_module(f"{PKG}.ops.spmm_cuda")
-    if not sc.SOURCE.resolve().is_relative_to(root):
-        raise RuntimeError(f"{PKG} was imported from {sc.SOURCE.parents[2]}, "
-                           f"not from this checkout ({root})")
-    dev = torch.device("cuda", 0)
+    ac = import_module(f"{PKG}.ops.adam_cuda")
+    for k in (sc, ac):
+        if not k.SOURCE.resolve().is_relative_to(root):
+            raise RuntimeError(f"{PKG} was imported from "
+                               f"{k.SOURCE.parents[2]}, not from this "
+                               f"checkout ({root})")
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    lib = sc.KERNEL.build()
-    regs = [ln.strip() for ln in sc.KERNEL.build_log.splitlines()
-            if "registers" in ln]
+    kernels_built = (sc.KERNEL, ac.KERNEL)
+    with ThreadPoolExecutor(len(kernels_built)) as pool:   # one nvcc each
+        libs = list(pool.map(lambda k: k.build(), kernels_built))
+    built = []
+    for k, lib in zip(kernels_built, libs):
+        regs = [ln.strip() for ln in k.build_log.splitlines()
+                if "registers" in ln]
+        built.append(f"{lib.name} ({len(regs)} instantiations, "
+                     f"{regs[0] if regs else 'no ptxas report'})")
     log(f"[phase 1] {smi}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; built {lib.name} in "
-        f"{time.perf_counter() - t0:.1f}s ({len(regs)} instantiations, "
-        f"{regs[0] if regs else 'no ptxas report'})")
+        f"{torch.version.cuda}; built in {time.perf_counter() - t0:.1f}s: "
+        + "; ".join(built))
 
     worst = phase_kernel_vs_plain(dev)
+    worst_adam = phase_adam_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
         res = phase_slice(dev, Path(tmp))
+        ctx = res.pop("_ctx")
+        train = phase_train(dev, Path(tmp), ctx)
+        parity = phase_train_parity(dev, Path(tmp), ctx)
+        times = phase_train_times(dev, ctx, parity.pop("_trainer"))
 
     dirs = res["directions"]
+    leaves = times["adam_leaves"]
     kernels = [{
         "name": "segment_spmm",
         "route": "cuda",
         "source": f"{PKG}/csrc/segment_spmm.cu",
         "replaces": REPLACES,
-        "launches": res["launches"],
+        # the main path's runs: serving (phase 3) and training (phase 6)
+        "launches": res["launches"] + train["launches"]["segment_spmm"],
+        "launches_by_path": {"serving": res["launches"],
+                             "training": train["launches"]["segment_spmm"]},
         "max_abs_err": worst["fp32"],
         # one Gauss-Seidel layer: one K1-role plus one K2-role application
         "ms": sum(e["ms"] for e in dirs),
@@ -420,13 +848,32 @@ def main(argv=None) -> int:
         "bound_by": "bytes",
         "library_ms": sum(e["library_ms"] for e in dirs),
         "directions": dirs,
+        "backward_directions": times["backward_directions"],
+    }, {
+        "name": "fused_adam",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/fused_adam.cu",
+        "replaces": REPLACES_ADAM,
+        "launches": train["launches"]["fused_adam"],
+        "max_abs_err": worst_adam["max_abs_err"],
+        # one train step: both tables
+        "ms": sum(e["ms"] for e in leaves),
+        "plain_ms": sum(e["plain_ms"] for e in leaves),
+        "bound_ms": sum(e["bound_ms"] for e in leaves),
+        "bound_by": "bytes",
+        "library_ms": sum(e["library_ms"] for e in leaves),
+        "leaves": leaves,
     }]
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(
             {"nvidia_smi": smi, "torch": torch.__version__, "kernels": kernels,
-             "phase2_worst": worst, **{k: v for k, v in res.items()
-                                       if k != "directions"}},
+             "phase2_worst": worst, "phase2b_worst": worst_adam,
+             "train": train, "train_parity": parity,
+             "train_times": {k: v for k, v in times.items()
+                             if k not in ("backward_directions",
+                                          "adam_leaves")},
+             **{k: v for k, v in res.items() if k != "directions"}},
             indent=1, default=float))
     print(smi)
     print(json.dumps({"kernels": kernels}))

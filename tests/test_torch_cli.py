@@ -3,6 +3,9 @@
 ``evaluate --device cpu`` with ``eval_mode=full`` on a saved graph and a
 JAX-written ``best_model.npz`` must print the same metric block as the JAX
 CLI (full mode has no random stream, so the strings are compared exactly).
+``train-rec --device cpu`` writes the JAX command's three outputs, and the
+JAX ``evaluate`` on the port-written ``best_model.npz`` prints the same
+metrics as the port's.
 """
 
 import json
@@ -113,9 +116,48 @@ def test_default_device_is_cuda(saved):
 
 
 def test_training_commands_not_registered():
-    for cmd in ("train-rec", "train-cred"):
-        with pytest.raises(SystemExit):
-            t_cli.build_parser().parse_args([cmd])
+    """Stage A's train-cred comes with a later slice; train-rec is here."""
+    with pytest.raises(SystemExit):
+        t_cli.build_parser().parse_args(["train-cred"])
+    args = t_cli.build_parser().parse_args(["train-rec", "--graph", "g.npz"])
+    assert args.fn is t_cli.cmd_train_rec and args.device == "cuda"
+
+
+def test_train_rec_writes_outputs_and_jax_evaluate_agrees(saved, tmp_path,
+                                                          capsys):
+    out = tmp_path / "rec"
+    res = t_cli.run(["train-rec", "--graph", str(saved / "graph.npz"),
+                     "--preset", "cu_message", "--out", str(out),
+                     "--checkpoint", "--device", "cpu", "epochs=2",
+                     "emb_dim=8", "batch_size=64", "eval_mode=full"])
+    assert {p.name for p in out.iterdir()} >= {
+        "best_model.npz", "test_metrics.json", "metrics.jsonl", "ckpt"}
+    assert [h.epoch for h in res.history] == [1, 2]
+    written = json.loads((out / "test_metrics.json").read_text())
+    assert written["20"]["recall"] == res.test_metrics[20]["recall"]
+    with np.load(out / "best_model.npz") as z:
+        assert sorted(z.files) == ["item_emb", "user_emb"]
+
+    args = ["evaluate", "--graph", str(saved / "graph.npz"),
+            "--params", str(out / "best_model.npz"), "--preset",
+            "cu_message", "emb_dim=8", "eval_mode=full"]
+    capsys.readouterr()
+    j_cli.main(args)
+    j_out = capsys.readouterr().out
+    t_res = t_cli.run(args + ["--device", "cpu"])
+    t_out = capsys.readouterr().out
+    assert _metric_lines(t_out) == _metric_lines(j_out)
+    j_json = json.loads(j_out.strip().splitlines()[-1])
+    for K in j_json:
+        for m in ("precision", "recall", "ndcg"):
+            assert t_res[int(K)][m] == pytest.approx(j_json[K][m], abs=1e-6)
+            assert written[K][m] == pytest.approx(j_json[K][m], abs=1e-6)
+
+
+def test_train_rec_mesh_not_supported(saved):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        t_cli.run(["train-rec", "--graph", str(saved / "graph.npz"),
+                   "--mesh", "all", "--device", "cpu"])
 
 
 def test_port_imports_without_jax():
