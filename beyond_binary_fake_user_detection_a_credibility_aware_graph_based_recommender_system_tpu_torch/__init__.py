@@ -8,7 +8,10 @@ each module's counterpart is easy to find, imports ``torch`` and never
 for the CPU.  Its hand-written kernels are the weighted segment-sum SpMM
 (``ops/spmm_cuda.py``, ``csrc/segment_spmm.cu``), which is also its own
 backward, and the fused Adam update (``ops/adam_cuda.py``,
-``csrc/fused_adam.cu``).
+``csrc/fused_adam.cu``).  The probes (``probes/``) run the edge-chunked
+SpMM layout (``ops/segment_plan.py``, ``ops/chunk_spmm.py``,
+``csrc/chunk_spmm.cu``) and a slab row gather (``ops/row_gather.py``,
+``csrc/row_gather.cu``) against the main path's kernel.
 
 Stage B is ported: ``train-rec`` / ``RecTrainer.fit`` (BPR training with
 checkpoints), ``evaluate`` on saved parameters, the full-catalog and sampled

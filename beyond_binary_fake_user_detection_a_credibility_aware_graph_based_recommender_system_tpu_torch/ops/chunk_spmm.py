@@ -1,0 +1,97 @@
+"""The edge-chunked SpMM: plain version and wrappers.
+
+``y[d] = sum_{e: dst[e]=d} w[e] * x[src[e]]`` over a
+:class:`~.segment_plan.SegmentPlan`, returning the plan's
+``(num_blocks*R, D)`` fp32 block space (``JAX: ops/spmm_pallas.py``
+``_apply_padded_blocks``; the probe kernels ``apply_window``, ``apply_i16``
+and ``apply_nopad_trunc``).
+
+:func:`chunk_spmm_reference` fixes the summation order that the CUDA kernels
+(``ops/chunk_spmm_cuda.py``) follow: within a chunk each row's run of edges
+is summed in edge order from 0, and a row's chunk partials are summed in
+chunk order from 0.  Two ordered ``index_add_`` passes give exactly that on
+the CPU.  Pad edges are dropped, never multiplied by their zero weight.
+
+The wrappers take the kernel for a CUDA tensor under ``backend="auto"`` (or
+raise) and the plain version for a CPU tensor or ``backend="torch"``:
+
+* :func:`chunk_spmm_blocks` returns the raw block space;
+* :func:`apply_chunked` truncates it to ``num_dst`` rows (``apply_pallas``);
+* :func:`apply_chunked_padded` keeps the block space, for a chain whose
+  source table is padded to the block grid (``apply_pallas_padded``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .chunk_spmm_cuda import KERNEL_BLOCK, KERNEL_I16, KERNEL_WINDOW
+from .segment_plan import SegmentPlan
+
+
+def chunk_spmm_reference(plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernels (same order, any device)."""
+    R, T = plan.block_rows, plan.chunk_edges
+    lid = plan.local_ids.long()
+    e = torch.nonzero(lid < (plan.window or R)).squeeze(1)
+    g = e // T
+    row = plan.block_id.long()[g] * R + lid[e]
+    if plan.window:
+        row += plan.win_start.long()[g]
+    msg = plan.w_padded[e, None] * x.index_select(0, plan.src_padded[e].long())
+    new = torch.ones(e.numel(), dtype=torch.bool, device=x.device)
+    new[1:] = (g[1:] != g[:-1]) | (row[1:] != row[:-1])
+    run = torch.cumsum(new, 0) - 1
+    part = torch.zeros(int(new.sum()), x.shape[1], dtype=torch.float32,
+                       device=x.device).index_add_(0, run, msg)
+    y = torch.zeros(plan.num_blocks * R, x.shape[1], dtype=torch.float32,
+                    device=x.device)
+    return y.index_add_(0, row[new], part)
+
+
+def _kernel(plan: SegmentPlan, lid_dtype: torch.dtype):
+    """The kernel for this plan and id width; raises on a combination no
+    kernel runs, on every device alike."""
+    if lid_dtype not in (torch.int32, torch.int16):
+        raise ValueError(f"local ids are int32 or int16, not {lid_dtype}")
+    if plan.window:
+        if lid_dtype != torch.int32:
+            raise ValueError("window plans run with int32 local ids")
+        return KERNEL_WINDOW
+    if lid_dtype == torch.int16:
+        if plan.block_rows > torch.iinfo(torch.int16).max:
+            raise ValueError(f"int16 local ids need R <= 32767, got "
+                             f"{plan.block_rows}")
+        return KERNEL_I16
+    return KERNEL_BLOCK
+
+
+def chunk_spmm_blocks(plan: SegmentPlan, x: torch.Tensor,
+                      lid_dtype: torch.dtype = torch.int32,
+                      backend: str = "auto") -> torch.Tensor:
+    """The raw ``(num_blocks*R, D)`` fp32 block space.  ``lid_dtype``
+    int16 reads a 2-byte local-id stream (P2; full-block plans only)."""
+    if backend not in ("auto", "torch"):
+        raise ValueError(f"unknown chunk spmm backend {backend!r}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be fp32, got {x.dtype}")
+    kernel = _kernel(plan, lid_dtype)
+    if backend == "torch" or x.device.type == "cpu":
+        return chunk_spmm_reference(plan, x)
+    return kernel(plan, x)
+
+
+def apply_chunked(plan: SegmentPlan, x: torch.Tensor,
+                  lid_dtype: torch.dtype = torch.int32,
+                  backend: str = "auto") -> torch.Tensor:
+    """The first ``num_dst`` rows of the block space."""
+    return chunk_spmm_blocks(plan, x, lid_dtype, backend)[:plan.num_dst]
+
+
+def apply_chunked_padded(plan: SegmentPlan, x_pad: torch.Tensor,
+                         lid_dtype: torch.dtype = torch.int32,
+                         backend: str = "auto") -> torch.Tensor:
+    """Padded-chain form: ``x_pad`` is a source table padded at its tail to
+    the block grid; the result stays in the block space with zero pad rows.
+    Truncate once per chain with ``y[:num_dst]``."""
+    return chunk_spmm_blocks(plan, x_pad, lid_dtype, backend)

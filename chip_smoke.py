@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--out results.json]
 
 Phases (each prints one line; any failure exits non-zero):
-  1. the card's name and power limit (nvidia-smi), and the two kernels'
-     builds from ``csrc/segment_spmm.cu`` and ``csrc/fused_adam.cu`` (one
-     nvcc per source, for sm_90a, started together);
+  1. the card's name and power limit (nvidia-smi), and the kernels' builds
+     from ``csrc/segment_spmm.cu``, ``csrc/fused_adam.cu``,
+     ``csrc/chunk_spmm.cu`` and ``csrc/row_gather.cu`` (one nvcc per
+     source, for sm_90a, started together);
   2. the SpMM kernel against its plain PyTorch version on the card: random
      edges, empty rows, duplicate edges, a zero-edge operator and a Zipf hub
      graph, at D in {8, 64, 128}, fp32 and bf16; two launches must be
@@ -37,11 +38,25 @@ Phases (each prints one line; any failure exits non-zero):
   8. times (CUDA events, host clock for the epoch): one train step split
      into forward+loss, backward and Adam; each backward SpMM direction;
      the Adam kernel per table against its plain version,
-     torch.optim.Adam(fused=True) and its bound; one epoch.
+     torch.optim.Adam(fused=True) and its bound; one epoch;
+  9. the chunked SpMM kernels (``csrc/chunk_spmm.cu``: full-block, window
+     and int16-id chunks) against their plain version on the card: the
+     phase-2 graphs plus a source row 0 of inf (pad edges must be skipped),
+     windows W in {64, 128, 256}, small blocks with many chunk boundaries,
+     and the reference graph in both directions; two launches bit-identical
+     and bit-equal to the plain version's sequential CPU sum, pad and empty
+     rows exact zeros, a K=3 padded chain; then the slab row gather
+     (``csrc/row_gather.cu``) at S in {512, 2048, 8192, 16384}, bit-exact
+     (S=512 through both routes);
+ 10. the three probes (``probes/window_kernel.py``, ``kernel_grid.py``,
+     ``vmem_gather.py``) at reference scale, counted: every chunked and
+     gather kernel must launch there.
 
-It imports nothing of the JAX package.  It needs one CUDA card and exits
-non-zero without one.  The line before the last holds the kernels' JSON; the
-last line is ``{"ok": true, "device": {...}}``.
+Every kernel's launch counter is set to 0 before each counted path (phases
+3, 6 and 10) and read after it; a kernel that is not on that path must show
+0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
+exits non-zero without one.  The line before the last holds the kernels'
+JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -64,13 +79,19 @@ REPLACES = ("beyond_binary_fake_user_detection_a_credibility_aware_graph_"
             "pallas_call at :500")
 REPLACES_ADAM = ("scripts/probe_fused_adam.py:71 (pallas_adam_leaf, P5; body "
                  "_adam_kernel :60); pallas_call at :79")
+REPLACES_P1 = ("scripts/probe_window_kernel.py:127 (apply_window, P1; body "
+               "_window_kernel :109); pallas_call at :148")
+REPLACES_P2 = ("scripts/probe_window_kernel.py:182 (apply_i16, P2; body "
+               "_i16_kernel :166); pallas_call at :204")
+REPLACES_P3 = ("scripts/probe_kernel_grid.py:128 (apply_nopad_trunc, P3; body "
+               "_segment_kernel, ops/spmm_pallas.py:406); pallas_call at :153")
+REPLACES_P4 = ("scripts/probe_vmem_gather.py:34 (probe.call, P4; body kernel "
+               ":29); pallas_call at :35")
 # the reference-scale graph (bench.py --scale ref)
 GRAPH = dict(num_users=58_867, num_items=261_728, edges_per_user=7.9, seed=0,
              power=1.0)
 TRAIN_EPOCHS = 2
 PARITY_STEPS = 3
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
-FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 ADAM_BYTES = 28               # per element: read p, g, m, v; write p, m, v
 ADAM_FLOPS = 13               # per element: 3 for m, 4 for v, 3 + 3 for p
 # fp32: |kernel - plain| <= FP32_ATOL + FP32_RTOL * sum_e |w_e * x_src(e)|,
@@ -111,15 +132,34 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def bound_ms(op, D: int, itemsize: int) -> float:
-    """Least time for one application: each input read once (the source
-    rows this operator references, src, w, indptr), y written once, over
-    the HBM rate; 2*E*D flops over the fp32 rate; the larger of the two."""
-    import torch
-    rows = int(torch.unique(op.src).numel()) if op.src.numel() else 0
-    nbytes = (rows * D * itemsize + op.src.numel() * 8
-              + op.indptr.numel() * 8 + op.num_dst * D * itemsize)
-    flops = 2.0 * op.src.numel() * D
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    """Least time for one CSR application (``probes/_timing.py``)."""
+    from importlib import import_module
+    return import_module(f"{PKG}.probes._timing").csr_bound_ms(op, D, itemsize)
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the package, by its entry symbol; each
+    counts its launches in ``launches``."""
+    from importlib import import_module
+    mods = [import_module(f"{PKG}.ops.{m}") for m in
+            ("spmm_cuda", "adam_cuda", "chunk_spmm_cuda", "row_gather_cuda")]
+    return {k.symbol: k for m in mods
+            for k in getattr(m, "KERNELS", None) or (m.KERNEL,)}
+
+
+def reset_counts() -> None:
+    for k in kernel_counters().values():
+        k.launches = 0
+
+
+def read_counts(expected: dict, path: str) -> dict:
+    """Every kernel's launches since :func:`reset_counts`; a kernel not
+    named in ``expected`` must not have launched."""
+    got = {name: k.launches for name, k in kernel_counters().items()}
+    want = {name: expected.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+    return got
 
 
 # --------------------------------------------------------------------------
@@ -271,8 +311,8 @@ def phase_slice(dev, tmp: Path) -> dict:
             "--cred", str(tmp / "cred.csv"), "--split", "test",
             "--device", str(dev)]
 
-    # ---- phase 3: the main path, counted ----
-    sc.KERNEL.launches = 0
+    # ---- phase 3: the main path, counted (every kernel's count) ----
+    reset_counts()
     t1 = time.perf_counter()
     res_s = cli.run(base + ["eval_mode=sampled"])
     res_f = cli.run(base + ["eval_mode=full"])
@@ -288,11 +328,10 @@ def phase_slice(dev, tmp: Path) -> dict:
                                             exclude_batch_rows=excl)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t1
-    launches = sc.KERNEL.launches
     n_prop = 3
-    if launches != 6 * n_prop:
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"6 per propagate x {n_prop}")
+    # 6 SpMM launches per propagate; no other kernel is on this path
+    counts = read_counts({"segment_spmm": 6 * n_prop}, "serving path")
+    launches = counts["segment_spmm"]
     for K in res_f:
         for r in (res_s[K], res_f[K]):
             if not all(np.isfinite(r[m]) and 0.0 <= r[m] <= 1.0
@@ -395,7 +434,8 @@ def phase_slice(dev, tmp: Path) -> dict:
         f"{e['bf16_bound_ms']:.4f}" for e in per_dir)
         + f"; propagate kernel {prop_ms:.3f} plain {prop_plain_ms:.3f}; "
         f"evaluate sampled {evals['sampled']:.1f} full {evals['full']:.1f}")
-    return {"launches": launches, "directions": per_dir,
+    return {"launches": launches, "launches_by_kernel": counts,
+            "directions": per_dir,
             "propagate_ms": prop_ms, "propagate_plain_ms": prop_plain_ms,
             "evaluate_ms": evals, "metrics_sampled": res_s,
             "metrics_full": res_f, "jaccard_mean": float(jac.mean()),
@@ -473,8 +513,6 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
     import torch
     from importlib import import_module
     cli = import_module(f"{PKG}.cli.main")
-    sc = import_module(f"{PKG}.ops.spmm_cuda")
-    ac = import_module(f"{PKG}.ops.adam_cuda")
     graph, cfg = ctx["graph"], ctx["cfg"]
     K = cfg.num_layers
     n_train = int((graph.user_csr("train").degrees() > 0).sum())
@@ -482,9 +520,8 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
     n_evals = TRAIN_EPOCHS // cfg.eval_every + 1      # val per epoch + test
     out = tmp / "rec"
 
-    # ---- the main path, counted ----
-    sc.KERNEL.launches = 0
-    ac.KERNEL.launches = 0
+    # ---- the main path, counted (every kernel's count) ----
+    reset_counts()
     t0 = time.perf_counter()
     res = cli.run(["train-rec", "--graph", str(tmp / "graph.npz"),
                    "--preset", "cu_message", "--cred", str(tmp / "cred.csv"),
@@ -492,15 +529,12 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
                    f"epochs={TRAIN_EPOCHS}"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    spmm_n, adam_n = sc.KERNEL.launches, ac.KERNEL.launches
-    want_spmm = 4 * K * nb * TRAIN_EPOCHS + 2 * K * n_evals
-    want_adam = 2 * nb * TRAIN_EPOCHS
-    if (spmm_n, adam_n) != (want_spmm, want_adam):
-        raise AssertionError(
-            f"launches: segment_spmm {spmm_n} (expected {want_spmm} = "
-            f"{4 * K} x {nb} steps x {TRAIN_EPOCHS} epochs + {2 * K} x "
-            f"{n_evals} evaluations), fused_adam {adam_n} (expected "
-            f"{want_adam} = 2 x {nb} x {TRAIN_EPOCHS})")
+    # segment_spmm: 4K per step x nb steps x epochs + 2K per evaluation;
+    # fused_adam: 2 per step; no other kernel is on this path
+    counts = read_counts(
+        {"segment_spmm": 4 * K * nb * TRAIN_EPOCHS + 2 * K * n_evals,
+         "fused_adam": 2 * nb * TRAIN_EPOCHS}, "training path")
+    spmm_n, adam_n = counts["segment_spmm"], counts["fused_adam"]
 
     losses = [h.loss for h in res.history]
     if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)):
@@ -532,6 +566,7 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
         f"{adam_n} = 2 x {nb} x {TRAIN_EPOCHS}; evaluate on best_model.npz "
         f"reproduces test_metrics.json (diff {err:.3g})")
     return {"launches": {"segment_spmm": spmm_n, "fused_adam": adam_n},
+            "launches_by_kernel": counts,
             "steps_per_epoch": nb, "epoch_losses": losses,
             "epoch_seconds": [h.seconds for h in res.history],
             "train_rec_wall_s": wall, "best_val_recall": res.best_val_recall,
@@ -611,6 +646,7 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
 def phase_train_times(dev, ctx: dict, tr) -> dict:
     import torch
     from importlib import import_module
+    tm = import_module(f"{PKG}.probes._timing")
     trainer_mod = import_module(f"{PKG}.train.trainer")
     adam = import_module(f"{PKG}.ops.adam")
     sc = import_module(f"{PKG}.ops.spmm_cuda")
@@ -692,8 +728,7 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
         leaves.append({
             "leaf": name, "shape": list(p.shape), "ms": min(k1, k2),
             "plain_ms": min(p1, p2), "library_ms": cuda_time_ms(lib.step, 30),
-            "bound_ms": 1e3 * max(ADAM_BYTES * numel / HBM_BYTES_PER_S,
-                                  ADAM_FLOPS * numel / FP32_FLOPS)})
+            "bound_ms": tm.bound_ms(ADAM_BYTES * numel, ADAM_FLOPS * numel)})
 
     # where the device time of a step goes: a profiled window of 3 steps
     from torch.autograd import DeviceType
@@ -776,6 +811,274 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 9-10: the chunked SpMM layouts and the slab gather (probe kernels)
+# --------------------------------------------------------------------------
+
+# (label, block rows R, chunk edges T, window W, local-id dtype name)
+CHUNK_LAYOUTS = [("block", 512, 256, 0, "int32"), ("i16", 512, 256, 0, "int16"),
+                 ("win64", 512, 256, 64, "int32"),
+                 ("win128", 512, 256, 128, "int32"),
+                 ("win256", 512, 256, 256, "int32"),
+                 ("block_small", 64, 32, 0, "int32"),
+                 ("win_small", 64, 32, 16, "int32")]
+CHUNK_KERNEL = {"int32": "chunk_spmm_block", "int16": "chunk_spmm_i16",
+                "window": "chunk_spmm_window"}
+GATHER_SIZES = (512, 2048, 8192, 16384)
+GATHER_STEPS = 64
+
+
+def _chunk_check(cs, plan, x, lid, tag, worst) -> None:
+    """Kernel against the plain version on the card (fp32 bound), two
+    launches bit-identical, pad and empty rows zero, and bit-equal to the
+    plain version's sequential CPU sum (runs in edge order, then chunk
+    partials in chunk order: the order the kernel follows, with no
+    atomics)."""
+    import dataclasses
+    import torch
+    y1 = cs.chunk_spmm_blocks(plan, x, lid)
+    y2 = cs.chunk_spmm_blocks(plan, x, lid)
+    ref = cs.chunk_spmm_reference(plan, x)
+    mag = cs.chunk_spmm_reference(
+        dataclasses.replace(plan, w_padded=plan.w_padded.abs(), _lids={}),
+        x.abs())
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{tag}: two launches differ")
+    if y1.shape != (plan.num_blocks * plan.block_rows, x.shape[1]):
+        raise AssertionError(f"{tag}: wrong output shape {tuple(y1.shape)}")
+    if not torch.isfinite(y1).all():
+        raise AssertionError(f"{tag}: non-finite output (a pad edge read?)")
+    diff = (y1 - ref).abs()
+    if bool((diff > FP32_ATOL + FP32_RTOL * mag).any()):
+        raise AssertionError(f"{tag}: kernel disagrees with the plain "
+                             f"version, max {float(diff.max())}")
+    if bool((y1[mag.abs().sum(1) == 0] != 0).any()):
+        raise AssertionError(f"{tag}: a row no edge reaches is not zero")
+    name = CHUNK_KERNEL["window" if plan.window else
+                        ("int16" if lid == torch.int16 else "int32")]
+    worst[name] = max(worst[name], float(diff.max()) if diff.numel() else 0.0)
+    cpu = dataclasses.replace(plan, _lids={}, **{
+        f: (None if getattr(plan, f) is None else getattr(plan, f).cpu())
+        for f in ("src_padded", "w_padded", "local_ids", "block_id",
+                  "first_chunk", "win_start")})
+    if not torch.equal(y1.cpu(), cs.chunk_spmm_reference(cpu, x.cpu())):
+        raise AssertionError(f"{tag}: not bit-equal to the plain version's "
+                             f"sequential CPU sum")
+
+
+def phase_chunk_vs_plain(dev, dirs) -> dict:
+    import torch
+    from importlib import import_module
+    cs = import_module(f"{PKG}.ops.chunk_spmm")
+    sp = import_module(f"{PKG}.ops.segment_plan")
+    rg = import_module(f"{PKG}.ops.row_gather")
+    rgc = import_module(f"{PKG}.ops.row_gather_cuda")
+    wk = import_module(f"{PKG}.probes.window_kernel")
+    rng = np.random.default_rng(0)
+    worst = {k: 0.0 for k in CHUNK_KERNEL.values()}
+    n = 0
+    cases = _cases(rng)
+    E = 30_000
+    cases["inf_row0"] = (rng.integers(1, 5_000, E), rng.integers(0, 3_000, E),
+                         rng.normal(size=E), 5_000, 3_000)
+    for name, (src, dst, w, ns, nd) in cases.items():
+        o = np.argsort(dst, kind="stable")
+        src, dst, w = (np.asarray(src, np.int32)[o], np.asarray(dst, np.int64)[o],
+                       np.asarray(w, np.float32)[o])
+        for label, R, T, W, lid in CHUNK_LAYOUTS:
+            plan = sp.build_segment_plan(src, dst, w, nd, block_rows=R,
+                                         chunk_edges=T, num_src=ns, window=W,
+                                         device=dev)
+            for D in (8, 64, 128):
+                x = torch.randn(ns, D, device=dev)
+                if name == "inf_row0":
+                    x[0] = float("inf")
+                _chunk_check(cs, plan, x, getattr(torch, lid),
+                             f"{name} {label} D={D}", worst)
+                n += 1
+    # the reference graph, both directions, and a K=3 padded chain
+    for name, d in dirs.items():
+        for label, R, T, W, lid in CHUNK_LAYOUTS[:5]:
+            plan = wk.plan_for(d, dev, chunk_edges=T, window=W)
+            _chunk_check(cs, plan, d["x"], getattr(torch, lid),
+                         f"{name} {label}", worst)
+            n += 1
+    iu, ui = dirs["items<-users"], dirs["users<-items"]
+    p_iu, p_ui = wk.plan_for(iu, dev), wk.plan_for(ui, dev)
+    lay_u = sp.PadLayout(ui["num_dst"], p_ui.num_blocks * p_ui.block_rows)
+    lay_i = sp.PadLayout(iu["num_dst"], p_iu.num_blocks * p_iu.block_rows)
+    u0 = torch.randn(lay_u.rows, 64, device=dev)
+    i0 = torch.randn(lay_i.rows, 64, device=dev)
+    u, i = lay_u.to_padded(u0), lay_i.to_padded(i0)
+    cu, ci = u0, i0
+    c_iu, c_ui = iu["csr"], ui["csr"]
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    for layer in range(3):
+        i = cs.apply_chunked_padded(p_iu, u)
+        u = cs.apply_chunked_padded(p_ui, i)
+        ci = sc.segment_spmm(c_iu.indptr, c_iu.src, c_iu.w, cu)
+        cu = sc.segment_spmm(c_ui.indptr, c_ui.src, c_ui.w, ci)
+        if bool((u[lay_u.rows:] != 0).any() or (i[lay_i.rows:] != 0).any()):
+            raise AssertionError(f"padded chain layer {layer}: a pad row is "
+                                 f"not zero")
+        # each layer sums thousands of positive-weighted terms in another
+        # order: the bound is relative to the layer's largest value
+        for got, want in ((lay_u.from_padded(u), cu),
+                          (lay_i.from_padded(i), ci)):
+            if float((got - want).abs().max()) > \
+                    FP32_ATOL + FP32_RTOL * float(want.abs().max()):
+                raise AssertionError(
+                    f"padded chain layer {layer} differs from the CSR chain "
+                    f"by {float((got - want).abs().max())}")
+    chain_err = max(float((lay_u.from_padded(u) - cu).abs().max()),
+                    float((lay_i.from_padded(i) - ci).abs().max()))
+    log(f"[phase 9] chunked kernels vs plain: {n} cases ok (6 graphs x "
+        f"{len(CHUNK_LAYOUTS)} layouts x D 8/64/128, the reference graph x 5 "
+        f"layouts x 2 directions), bit-identical reruns, inf in source row 0 "
+        f"never read, untouched and pad rows zero; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tol {FP32_ATOL:g} + {FP32_RTOL:g}*sum|w*x|), every case "
+        f"bit-equal to the plain version's sequential CPU sum; K=3 padded "
+        f"chain: pad rows zero, max diff from the CSR chain {chain_err:.3g}")
+
+    gather = {"max_abs_err": 0.0, "sizes": []}
+    for S in GATHER_SIZES:
+        x = torch.randn(S, 64, device=dev)
+        idx = torch.randint(0, S, (GATHER_STEPS * S,), device=dev,
+                            dtype=torch.int32)
+        ref = rg.row_gather_reference(x, idx)
+        routes = ["l2", "smem"] if rgc.smem_fits(S, 64) else ["l2"]
+        for route in routes:
+            o1 = rgc.KERNEL(x, idx, route)
+            o2 = rgc.KERNEL(x, idx, route)
+            torch.cuda.synchronize()
+            if not (torch.equal(o1, o2) and torch.equal(o1, ref)):
+                raise AssertionError(f"row_gather S={S} route={route}: not "
+                                     f"bit-exact")
+            gather["sizes"].append({"S": S, "route": route})
+    log(f"[phase 9] row_gather kernel vs plain: S {list(GATHER_SIZES)} x "
+        f"{GATHER_STEPS} steps, D=64, routes "
+        + ", ".join(f"S={e['S']} {e['route']}" for e in gather["sizes"])
+        + "; bit-exact, bit-identical reruns")
+    return {"max_abs_err": worst, "cases": n, "padded_chain_max_diff": chain_err,
+            "gather": gather}
+
+
+def phase_probes(dev, dirs) -> dict:
+    import torch
+    from importlib import import_module
+    wk = import_module(f"{PKG}.probes.window_kernel")
+    kg = import_module(f"{PKG}.probes.kernel_grid")
+    vg = import_module(f"{PKG}.probes.vmem_gather")
+    size = dict(users=GRAPH["num_users"], items=GRAPH["num_items"],
+                edges_per_user=GRAPH["edges_per_user"], dim=64)
+    # ---- this slice's path, counted (every kernel's count) ----
+    reset_counts()
+    t0 = time.perf_counter()
+    win = wk.run(dev, **size, iters=20, dirs=dirs)
+    grid = kg.run(dev, **size, iters=10, dirs=dirs)
+    gather = vg.run(dev, GATHER_SIZES, GATHER_STEPS, 64, 20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernel_counters().items()}
+    # every SpMM and gather kernel runs here; the Adam kernel does not
+    idle = [name for name, n in launches.items()
+            if (n == 0) != (name == "fused_adam")]
+    if idle:
+        raise AssertionError(f"probe path launches {launches}: wrong for "
+                             f"{idle}")
+    bad = ([f"{r['direction']} {r['variant']}" for r in win["rows"]
+            if not r["ok"]]
+           + [f"{r['direction']} T={r['T']} W={r['W']}" for r in grid["grid"]
+              if not r["ok"]]
+           + [f"gather S={r['S']} {r['route']}" for r in gather["rows"]
+              if not r["exact"]])
+    if bad or not grid["chain_ok"]:
+        raise AssertionError(f"probe results out of bound: {bad}, chain "
+                             f"{grid['chain']}")
+    # the chunked item<-user apply split by kernel: chunk pass, carry pass
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cs = import_module(f"{PKG}.ops.chunk_spmm")
+    iu = dirs["items<-users"]
+    plan = wk.plan_for(iu, dev)
+    cs.chunk_spmm_blocks(plan, iu["x"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            cs.chunk_spmm_blocks(plan, iu["x"])
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = "carry" if "carry_kernel" in e.key else (
+                "chunk" if "chunk_kernel" in e.key else "other")
+            split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e4
+    log(f"[phase 10] probes at reference scale in {wall:.1f}s: launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + "; every variant within the fp32 bound of the CSR kernel, chain "
+        "sums agree, gathers bit-exact; item<-user R=512 T=256 by kernel "
+        "(ms per apply, profiler): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    return {"window_kernel": win, "kernel_grid": grid, "vmem_gather": gather,
+            "launches": launches, "wall_s": wall,
+            "item_from_user_split_ms": split}
+
+
+def launches_by_path(paths: dict, name: str) -> dict:
+    """One kernel's launches on each counted path (``paths``: path name to
+    the counts read after it)."""
+    return {path: counts[name] for path, counts in paths.items()}
+
+
+def _probe_entry(rows, name, source, replaces, paths, err, extra):
+    """One kernel's entry from its probe rows (summed over the rows: one
+    application per direction, or one call per slab size).  Its path is
+    the probes': ``launches`` is the count read there."""
+    return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+            "replaces": replaces, "launches": paths["probes"][name],
+            "launches_by_path": launches_by_path(paths, name),
+            "max_abs_err": err,
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in rows), **extra}
+
+
+def probe_kernel_entries(chunk: dict, probes: dict, paths: dict) -> list:
+    """The kernels' entries of the probe kernels P1-P4, from phases 9-10
+    (``paths``: each counted path's launches by kernel)."""
+    kernels = []
+    win_rows = probes["window_kernel"]["rows"]
+    err = chunk["max_abs_err"]
+    for name, variant, replaces in (
+            ("chunk_spmm_block", "base R=512 T=256", REPLACES_P3),
+            ("chunk_spmm_window", "win W=64", REPLACES_P1),
+            ("chunk_spmm_i16", "i16 R=512 T=256", REPLACES_P2)):
+        rows = [r for r in win_rows if r["variant"] == variant]
+        kernels.append(_probe_entry(
+            rows, name, "chunk_spmm.cu", replaces, paths, err[name],
+            {"shape": f"{variant}, one application per direction, D=64",
+             "directions": [{k: r[k] for k in ("direction", "ms", "plain_ms",
+                                               "bound_ms", "library_ms",
+                                               "pad_pct", "chunks")}
+                            for r in rows]}))
+    # the wrapper's route (L2); the shared-memory route is the probe's
+    # second variant at S=512 and stays in "sizes"
+    g_rows = [r for r in probes["vmem_gather"]["rows"] if r["route"] == "l2"]
+    kernels.append(_probe_entry(
+        g_rows, "row_gather", "row_gather.cu", REPLACES_P4, paths,
+        chunk["gather"]["max_abs_err"],
+        {"shape": f"one call per slab size S in {list(GATHER_SIZES)}, "
+                  f"{GATHER_STEPS} * S rows, D=64, L2 route",
+         "sizes": [{k: r[k] for k in ("S", "route", "ms", "ns_per_row",
+                                      "plain_ms", "bound_ms", "library_ms")}
+                   for r in probes["vmem_gather"]["rows"]]}))
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -790,35 +1093,51 @@ def main(argv=None) -> int:
     return run(torch.device("cuda", 0), args.out)
 
 
+def build_kernels() -> tuple:
+    """Build every kernel source of the package (one nvcc each, started
+    together); returns the phase-1 summary and each source's ptxas lines."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from importlib import import_module
+    root = Path(__file__).resolve().parent
+    mods = [import_module(f"{PKG}.ops.{m}") for m in
+            ("spmm_cuda", "adam_cuda", "chunk_spmm_cuda", "row_gather_cuda")]
+    for m in mods:
+        if not m.SOURCE.resolve().is_relative_to(root):
+            raise RuntimeError(f"{PKG} was imported from "
+                               f"{m.SOURCE.parents[2]}, not from this "
+                               f"checkout ({root})")
+    # one kernel object per source: the chunked kernels share theirs
+    by_source = {}
+    for m in mods:
+        for k in getattr(m, "KERNELS", None) or (m.KERNEL,):
+            by_source.setdefault(k.source, k)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(by_source)) as pool:
+        libs = list(pool.map(lambda k: k.build(), by_source.values()))
+    built, ptxas = [], {}
+    for k, lib in zip(by_source.values(), libs):
+        lines = [ln.strip() for ln in k.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        ptxas[k.source.name] = lines
+        regs = [ln for ln in lines if "registers" in ln]
+        built.append(f"{lib.name} ({len(regs)} kernels, "
+                     f"{regs[0] if regs else 'no ptxas report'})")
+    return (f"torch {torch.__version__} cuda {torch.version.cuda}; "
+            f"{len(libs)} sources built in {time.perf_counter() - t0:.1f}s: "
+            + "; ".join(built)), ptxas
+
+
 def run(dev, out_path=None) -> int:
     """Every phase on ``dev``; prints the kernels' line and the last line."""
     import torch
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
-    from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
-    sc = import_module(f"{PKG}.ops.spmm_cuda")
-    ac = import_module(f"{PKG}.ops.adam_cuda")
-    for k in (sc, ac):
-        if not k.SOURCE.resolve().is_relative_to(root):
-            raise RuntimeError(f"{PKG} was imported from "
-                               f"{k.SOURCE.parents[2]}, not from this "
-                               f"checkout ({root})")
-
     smi = nvidia_smi()
-    t0 = time.perf_counter()
-    kernels_built = (sc.KERNEL, ac.KERNEL)
-    with ThreadPoolExecutor(len(kernels_built)) as pool:   # one nvcc each
-        libs = list(pool.map(lambda k: k.build(), kernels_built))
-    built = []
-    for k, lib in zip(kernels_built, libs):
-        regs = [ln.strip() for ln in k.build_log.splitlines()
-                if "registers" in ln]
-        built.append(f"{lib.name} ({len(regs)} instantiations, "
-                     f"{regs[0] if regs else 'no ptxas report'})")
-    log(f"[phase 1] {smi}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; built in {time.perf_counter() - t0:.1f}s: "
-        + "; ".join(built))
+    summary, ptxas = build_kernels()
+    log(f"[phase 1] {smi}; {summary}")
+    wk = import_module(f"{PKG}.probes.window_kernel")
 
     worst = phase_kernel_vs_plain(dev)
     worst_adam = phase_adam_vs_plain(dev)
@@ -828,18 +1147,29 @@ def run(dev, out_path=None) -> int:
         train = phase_train(dev, Path(tmp), ctx)
         parity = phase_train_parity(dev, Path(tmp), ctx)
         times = phase_train_times(dev, ctx, parity.pop("_trainer"))
+    t9 = time.perf_counter()
+    probe_dirs = wk.directions(GRAPH["num_users"], GRAPH["num_items"],
+                               GRAPH["edges_per_user"], 64, dev)
+    chunk = phase_chunk_vs_plain(dev, probe_dirs)
+    probes = phase_probes(dev, probe_dirs)
+    log(f"[phases 9-10] {time.perf_counter() - t9:.1f}s")
 
     dirs = res["directions"]
     leaves = times["adam_leaves"]
+    # every kernel's count, read after each counted path: serving (phase
+    # 3), training (phase 6), the probes (phase 10)
+    paths = {"serving": res["launches_by_kernel"],
+             "training": train["launches_by_kernel"],
+             "probes": probes["launches"]}
     kernels = [{
         "name": "segment_spmm",
         "route": "cuda",
         "source": f"{PKG}/csrc/segment_spmm.cu",
         "replaces": REPLACES,
         # the main path's runs: serving (phase 3) and training (phase 6)
-        "launches": res["launches"] + train["launches"]["segment_spmm"],
-        "launches_by_path": {"serving": res["launches"],
-                             "training": train["launches"]["segment_spmm"]},
+        "launches": (paths["serving"]["segment_spmm"]
+                     + paths["training"]["segment_spmm"]),
+        "launches_by_path": launches_by_path(paths, "segment_spmm"),
         "max_abs_err": worst["fp32"],
         # one Gauss-Seidel layer: one K1-role plus one K2-role application
         "ms": sum(e["ms"] for e in dirs),
@@ -854,7 +1184,8 @@ def run(dev, out_path=None) -> int:
         "route": "cuda",
         "source": f"{PKG}/csrc/fused_adam.cu",
         "replaces": REPLACES_ADAM,
-        "launches": train["launches"]["fused_adam"],
+        "launches": paths["training"]["fused_adam"],
+        "launches_by_path": launches_by_path(paths, "fused_adam"),
         "max_abs_err": worst_adam["max_abs_err"],
         # one train step: both tables
         "ms": sum(e["ms"] for e in leaves),
@@ -864,11 +1195,13 @@ def run(dev, out_path=None) -> int:
         "library_ms": sum(e["library_ms"] for e in leaves),
         "leaves": leaves,
     }]
+    kernels += probe_kernel_entries(chunk, probes, paths)
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(
             {"nvidia_smi": smi, "torch": torch.__version__, "kernels": kernels,
              "phase2_worst": worst, "phase2b_worst": worst_adam,
+             "ptxas": ptxas, "phase9": chunk, "probes": probes,
              "train": train, "train_parity": parity,
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",

@@ -166,6 +166,7 @@ def test_port_imports_without_jax():
                                   .with_suffix("").parts)
         for p in (ROOT / PORT_PKG).rglob("*.py") if p.name != "__main__.py")
     mods = [m.removesuffix(".__init__") for m in mods]
+    assert PORT_PKG + ".probes.window_kernel" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['jaxlib'] = None; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
