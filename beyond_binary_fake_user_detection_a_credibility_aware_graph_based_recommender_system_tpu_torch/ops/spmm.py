@@ -5,17 +5,21 @@ Every propagation variant is "the same kernel, different weights":
 (credibility, symmetric norm, degree damping) fused into the product.
 
 Each direction of an operator is a destination-sorted CSR (``indptr``,
-``src``, ``w``), built on the host once per operator, forward and transpose.
-``apply`` and ``transpose_apply`` run ``ops/spmm_cuda.segment_spmm``: the
-hand-written CUDA kernel for CUDA tensors, its plain PyTorch version on the
-CPU or under ``backend="torch"``.  Edges keep their input order within a
-destination row (stable sort), which fixes each row's summation order.
+``src``, ``w``) with its table of long-row pieces
+(``ops/spmm_cuda.long_row_pieces``: rows of more than ``LONG_ROW_EDGES``
+edges cut into pieces of that many edges), built on the host once per
+operator, forward and transpose.  ``apply`` and ``transpose_apply`` run
+``ops/spmm_cuda.segment_spmm``: the hand-written CUDA kernel for CUDA
+tensors, its plain PyTorch version on the CPU or under ``backend="torch"``.
+Edges keep their input order within a destination row (stable sort); with
+the pieces that fixes each row's summation order (``ops/spmm_cuda.py``).
 
 Both are differentiable in their input through :class:`_SpmmFn`, whose
 backward is the same kernel on the other direction: ``dx = A^T @ g``
-(``JAX: ops/spmm.py:92-110``).  The weights are constants of the operator.
-The product itself always runs without autograd, so no ``index_add_`` of
-the plain version is ever differentiated.
+(``JAX: ops/spmm.py:92-110``), whose own piece table splits its long rows
+(the backward of user<-item has the item<-user hub).  The weights are
+constants of the operator.  The product itself always runs without
+autograd, so no ``index_add_`` of the plain version is ever differentiated.
 """
 
 from __future__ import annotations
@@ -26,33 +30,37 @@ import numpy as np
 import torch
 
 from ..graph.operators import EdgeMap
-from .spmm_cuda import segment_spmm
+from .spmm_cuda import LONG_ROW_EDGES, LongRowPieces, long_row_pieces, segment_spmm
 
 _MSG_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
 class CsrDirection:
-    """One direction of an operator as a destination-sorted CSR."""
+    """One direction of an operator as a destination-sorted CSR and the
+    piece table of its long rows."""
     indptr: torch.Tensor      # (num_dst+1,) int64
     src: torch.Tensor         # (E,) int32, in dst-sorted order
     w: torch.Tensor           # (E,) float32, in dst-sorted order
     num_src: int
     num_dst: int
+    pieces: LongRowPieces
 
     @classmethod
     def from_edges(cls, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
-                   num_src: int, num_dst: int,
-                   device: torch.device) -> "CsrDirection":
+                   num_src: int, num_dst: int, device: torch.device,
+                   long_row_edges: int = LONG_ROW_EDGES) -> "CsrDirection":
         order = np.argsort(dst, kind="stable")
         indptr = np.zeros(num_dst + 1, np.int64)
         np.cumsum(np.bincount(np.asarray(dst, np.int64), minlength=num_dst),
                   out=indptr[1:])
+        indptr = torch.as_tensor(indptr, device=device)
         return cls(
-            indptr=torch.as_tensor(indptr, device=device),
+            indptr=indptr,
             src=torch.as_tensor(np.asarray(src, np.int32)[order], device=device),
             w=torch.as_tensor(np.asarray(w, np.float32)[order], device=device),
-            num_src=int(num_src), num_dst=int(num_dst))
+            num_src=int(num_src), num_dst=int(num_dst),
+            pieces=long_row_pieces(indptr, long_row_edges))
 
 
 class _SpmmFn(torch.autograd.Function):
@@ -75,7 +83,8 @@ class SpmmOperator:
     ``precision`` selects the message dtype: "fp32" (parity default) or
     "bf16", where the table and the weights are rounded to bf16 and each
     destination sums in fp32, as the JAX package's Pallas kernel does.  The
-    result comes back in ``x``'s dtype.
+    result comes back in ``x``'s dtype.  Both directions cut their long rows
+    at :data:`~.spmm_cuda.LONG_ROW_EDGES`.
     """
 
     def __init__(self, edge_map: EdgeMap, device, backend: str = "auto",
@@ -101,7 +110,7 @@ class SpmmOperator:
                              f"{d.num_src}")
         msg = x.to(_MSG_DTYPES[self.precision]).contiguous()
         return segment_spmm(d.indptr, d.src, d.w, msg, backend=self.backend,
-                            out_dtype=x.dtype)
+                            out_dtype=x.dtype, pieces=d.pieces)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return _SpmmFn.apply(x, self, self.fwd, self.bwd)

@@ -100,8 +100,10 @@ def run(device, users, items, edges_per_user, dim, iters,
                          device=device)
 
     def current():
-        return _chain(lambda u: segment_spmm(c_iu.indptr, c_iu.src, c_iu.w, u),
-                      lambda i: segment_spmm(c_ui.indptr, c_ui.src, c_ui.w, i),
+        return _chain(lambda u: segment_spmm(c_iu.indptr, c_iu.src, c_iu.w, u,
+                                             pieces=c_iu.pieces),
+                      lambda i: segment_spmm(c_ui.indptr, c_ui.src, c_ui.w, i,
+                                             pieces=c_ui.pieces),
                       u0, i0)
 
     def truncated():

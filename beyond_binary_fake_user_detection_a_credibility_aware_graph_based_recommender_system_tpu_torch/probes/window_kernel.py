@@ -5,7 +5,8 @@ graph (``synthetic_bipartite_graph(58_867, 261_728, 7.9, seed=0,
 power=1.0)``, random weights, D=64) it prints one line per variant and
 direction:
 
-* ``csr``: the main path's kernel, ``ops/spmm_cuda.segment_spmm``;
+* ``csr``: the main path's kernel, ``ops/spmm_cuda.segment_spmm`` (long
+  rows cut into pieces of ``LONG_ROW_EDGES`` edges);
 * ``base``: full-block chunks, R=512 T=256 (the P3 body, ``chunk_spmm_block``);
 * ``i16``: the same plan reading int16 local ids (P2, ``chunk_spmm_i16``);
 * ``win W``: window chunks, W in {64, 128, 256} (P1, ``chunk_spmm_window``).
@@ -84,8 +85,9 @@ class Reference:
 
     def __init__(self, d: dict):
         c, x = d["csr"], d["x"]
-        self.y = segment_spmm(c.indptr, c.src, c.w, x)
-        self.mag = segment_spmm(c.indptr, c.src, c.w.abs(), x.abs())
+        self.y = segment_spmm(c.indptr, c.src, c.w, x, pieces=c.pieces)
+        self.mag = segment_spmm(c.indptr, c.src, c.w.abs(), x.abs(),
+                                pieces=c.pieces)
 
     def check(self, y: torch.Tensor):
         diff = (y - self.y).abs()
@@ -119,7 +121,8 @@ def run(device, users, items, edges_per_user, dim, iters,
         lib = library_ms(d, device, iters)
         rows.append(dict(
             direction=name, variant="csr", kernel="segment_spmm",
-            ms=device_loop_time(lambda: segment_spmm(c.indptr, c.src, c.w, x),
+            ms=device_loop_time(lambda: segment_spmm(c.indptr, c.src, c.w, x,
+                                                     pieces=c.pieces),
                                 device, iters),
             pad_pct=0.0, max_err=0.0, ok=True, bound_ms=csr_bound_ms(c, dim),
             plain_ms=device_loop_time(lambda: segment_spmm_reference(

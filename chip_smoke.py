@@ -10,8 +10,11 @@ Phases (each prints one line; any failure exits non-zero):
      source, for sm_90a, started together);
   2. the SpMM kernel against its plain PyTorch version on the card: random
      edges, empty rows, duplicate edges, a zero-edge operator and a Zipf hub
-     graph, at D in {8, 64, 128}, fp32 and bf16; two launches must be
-     bit-identical;
+     graph, with long rows cut at LONG_ROW_EDGES and at 8 edges, at D in
+     {8, 33, 64, 128} (33: the scalar path), fp32 and bf16, a misaligned
+     table, and both reference-scale directions; two launches must be
+     bit-identical and every case bit-equal to the plain version's ordered
+     CPU sums;
   2b. the fused Adam kernel against its plain version on the card: leaves of
      the two reference-scale tables, (1, 1), (1001, 3) and a misaligned
      view, at t = 1 and t = 1000; two launches must be bit-identical;
@@ -23,8 +26,11 @@ Phases (each prints one line; any failure exits non-zero):
   4. the same parameters through the plain path (spmm_backend=torch) on the
      card: propagated tables, metrics and top-20 sets must agree;
   5. times (CUDA events) of each operator direction through the kernel, the
-     plain version and torch.sparse.mm, one propagate, and one sampled and
-     one full evaluate;
+     plain version and torch.sparse.mm, with its share of the bound, its
+     device time and CUDA launches per application by CUDA kernel
+     (profiler) and the wrapper's host time; a sweep of the long-row piece
+     length L in {32, ..., 512}, each held bit for bit against the plain
+     version; one propagate, and one sampled and one full evaluate;
   6. the training slice at full width: the CLI's train-rec with the
      cu_message preset (D=64, K=3, batch 4096: 15 steps per epoch) for 2
      epochs with checkpoints; the launch counters must show 12 SpMM and 2
@@ -38,7 +44,8 @@ Phases (each prints one line; any failure exits non-zero):
   8. times (CUDA events, host clock for the epoch): one train step split
      into forward+loss, backward and Adam; each backward SpMM direction;
      the Adam kernel per table against its plain version,
-     torch.optim.Adam(fused=True) and its bound; one epoch;
+     torch.optim.Adam(fused=True) and its bound; one epoch; a profiled
+     window of 3 steps (device busy share, device time by kernel);
   9. the chunked SpMM kernels (``csrc/chunk_spmm.cu``: full-block, window
      and int16-id chunks) against their plain version on the card: the
      phase-2 graphs plus a source row 0 of inf (pad edges must be skipped),
@@ -187,7 +194,54 @@ def _cases(rng):
     }
 
 
-def phase_kernel_vs_plain(dev) -> dict:
+def _spmm_check(sc, d, x, pieces, tag, worst) -> None:
+    """One kernel application against the plain version on the card (fp32
+    summation bound, or the bf16 row bound) and bit for bit against the
+    plain version's ordered CPU sums; two launches bit-identical, empty rows
+    exact zeros."""
+    import torch
+    L = pieces.edges_per_piece
+    y1 = sc.KERNEL(d.indptr, d.src, d.w, x, pieces=pieces)
+    y2 = sc.KERNEL(d.indptr, d.src, d.w, x, pieces=pieces)
+    ref = sc.segment_spmm_reference(d.indptr, d.src, d.w, x, long_row_edges=L)
+    torch.cuda.synchronize()
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{tag}: two launches differ")
+    if y1.dtype != x.dtype or y1.shape != (d.num_dst, x.shape[1]):
+        raise AssertionError(f"{tag}: wrong output {y1.dtype} "
+                             f"{tuple(y1.shape)}")
+    if bool((y1[d.indptr[1:] == d.indptr[:-1]] != 0).any()):
+        raise AssertionError(f"{tag}: empty row not zero")
+    diff = (y1.float() - ref.float()).abs()
+    if x.dtype == torch.float32:
+        mag = sc.segment_spmm_reference(d.indptr, d.src, d.w.abs(), x.abs(),
+                                        long_row_edges=L)
+        bad = diff > FP32_ATOL + FP32_RTOL * mag
+        worst["fp32"] = max(worst["fp32"], float(diff.max())
+                            if diff.numel() else 0.0)
+    else:
+        row = ref.float().abs().amax(dim=1, keepdim=True)
+        bad = diff > BF16_ROW_TOL * row + FP32_ATOL
+        rel = diff / (row + 1e-30)
+        worst["bf16_rel"] = max(worst["bf16_rel"], float(rel.max())
+                                if rel.numel() else 0.0)
+    if bool(bad.any()):
+        raise AssertionError(f"{tag}: kernel disagrees with the plain "
+                             f"version, max {float(diff.max())}")
+    # the kernel sums in the plain version's order: short rows and pieces
+    # in edge order, long rows' partials in piece order, no atomics
+    seq = sc.segment_spmm_reference(d.indptr.cpu(), d.src.cpu(), d.w.cpu(),
+                                    x.cpu(), long_row_edges=L)
+    if not torch.equal(y1.cpu(), seq):
+        raise AssertionError(f"{tag}: not bit-equal to the plain version's "
+                             f"ordered CPU sums")
+
+
+def phase_kernel_vs_plain(dev, dirs) -> dict:
+    """The SpMM kernel against its plain version: the phase-2 graphs at
+    D in {8, 33, 64, 128} (33: the scalar path) with long rows cut at
+    LONG_ROW_EDGES and at 8, a misaligned table (the scalar path at D=64),
+    and both reference-scale directions (``dirs``, the probe graph)."""
     import torch
     from importlib import import_module
     spmm = import_module(f"{PKG}.ops.spmm")
@@ -196,57 +250,37 @@ def phase_kernel_vs_plain(dev) -> dict:
     worst = {"fp32": 0.0, "bf16_rel": 0.0}
     hub = 0
     n = 0
-    seq_equal = True
     for name, (src, dst, w, ns, nd) in _cases(rng).items():
         d = spmm.CsrDirection.from_edges(src, dst, w, ns, nd, dev)
         hub = max(hub, int((d.indptr[1:] - d.indptr[:-1]).max()))
-        empty = (d.indptr[1:] == d.indptr[:-1])
-        for D in (8, 64, 128):
-            x32 = torch.randn(ns, D, device=dev, dtype=torch.float32)
-            for dt in (torch.float32, torch.bfloat16):
-                x = x32.to(dt)
-                y1 = sc.KERNEL(d.indptr, d.src, d.w, x)
-                y2 = sc.KERNEL(d.indptr, d.src, d.w, x)
-                ref = sc.segment_spmm_reference(d.indptr, d.src, d.w, x)
-                torch.cuda.synchronize()
-                tag = f"{name} D={D} {dt}"
-                if not torch.equal(y1, y2):
-                    raise AssertionError(f"{tag}: two launches differ")
-                if y1.dtype != dt or y1.shape != (nd, D):
-                    raise AssertionError(f"{tag}: wrong output {y1.dtype} "
-                                         f"{tuple(y1.shape)}")
-                if bool((y1[empty] != 0).any()):
-                    raise AssertionError(f"{tag}: empty row not zero")
-                diff = (y1.float() - ref.float()).abs()
-                if dt == torch.float32:
-                    mag = sc.segment_spmm_reference(d.indptr, d.src,
-                                                    d.w.abs(), x.abs())
-                    bad = diff > FP32_ATOL + FP32_RTOL * mag
-                    worst["fp32"] = max(worst["fp32"], float(diff.max())
-                                        if diff.numel() else 0.0)
-                    # the kernel sums each row in edge order, like the
-                    # plain version's sequential CPU index_add_
-                    seq = sc.segment_spmm_reference(
-                        d.indptr.cpu(), d.src.cpu(), d.w.cpu(), x.cpu())
-                    seq_equal &= torch.equal(y1.cpu(), seq)
-                else:
-                    row = ref.float().abs().amax(dim=1, keepdim=True)
-                    bad = diff > BF16_ROW_TOL * row + FP32_ATOL
-                    rel = diff / (row + 1e-30)
-                    worst["bf16_rel"] = max(worst["bf16_rel"], float(
-                        rel.max()) if rel.numel() else 0.0)
-                if bool(bad.any()):
-                    raise AssertionError(f"{tag}: kernel disagrees with the "
-                                         f"plain version, max "
-                                         f"{float(diff.max())}")
-                n += 1
-    log(f"[phase 2] kernel vs plain: {n} cases ok (5 graphs x D 8/64/128 x "
-        f"fp32/bf16), bit-identical reruns, empty rows zero, hub row "
-        f"{hub} edges; max fp32 abs err {worst['fp32']:.3g} (tol "
-        f"{FP32_ATOL:g} + {FP32_RTOL:g}*sum|w*x|), max bf16 err/row-max "
-        f"{worst['bf16_rel']:.3g} (tol {BF16_ROW_TOL:g}); fp32 bit-equal to "
-        f"the sequential CPU sum: {seq_equal}")
-    worst["bit_equal_sequential_cpu"] = seq_equal
+        for L in (sc.LONG_ROW_EDGES, 8):
+            pieces = sc.long_row_pieces(d.indptr, L)
+            for D in (8, 33, 64, 128):
+                x32 = torch.randn(ns, D, device=dev, dtype=torch.float32)
+                for dt in (torch.float32, torch.bfloat16):
+                    _spmm_check(sc, d, x32.to(dt), pieces,
+                                f"{name} L={L} D={D} {dt}", worst)
+                    n += 1
+            # a table one element off 16-byte alignment
+            buf = torch.randn(ns * 64 + 1, device=dev)
+            _spmm_check(sc, d, buf[1:].view(ns, 64), pieces,
+                        f"{name} L={L} D=64 misaligned", worst)
+            n += 1
+    for name, p in dirs.items():
+        d = p["csr"]
+        for dt in (torch.float32, torch.bfloat16):
+            _spmm_check(sc, d, p["x"].to(dt), d.pieces,
+                        f"reference {name} D=64 {dt}", worst)
+            n += 1
+    log(f"[phase 2] kernel vs plain: {n} cases ok (5 graphs x L "
+        f"{sc.LONG_ROW_EDGES}/8 x D 8/33/64/128 x fp32/bf16, a misaligned "
+        f"table, both reference directions x fp32/bf16), bit-identical "
+        f"reruns, empty rows zero, hub row {hub} edges; max fp32 abs err "
+        f"{worst['fp32']:.3g} (tol {FP32_ATOL:g} + {FP32_RTOL:g}*sum|w*x|), "
+        f"max bf16 err/row-max {worst['bf16_rel']:.3g} (tol "
+        f"{BF16_ROW_TOL:g}); every case bit-equal to the plain version's "
+        f"ordered CPU sums")
+    worst["cases"] = n
     return worst
 
 
@@ -275,6 +309,83 @@ def _metrics_equal(a: dict, b: dict, tol: float = 1e-6) -> float:
     if worst > tol:
         raise AssertionError(f"metrics differ by {worst} > {tol}")
     return worst
+
+
+SWEEP_L = (32, 64, 128, 256, 512)
+
+
+def sweep_long_row_edges(sc, d, x) -> list:
+    """The kernel at each piece length L in SWEEP_L on one direction, each
+    held bit for bit against the plain version's ordered CPU sums at that
+    L; times (CUDA events) taken in order and in reverse, best of both."""
+    import torch
+    tables = {L: sc.long_row_pieces(d.indptr, L) for L in SWEEP_L}
+    cpu = (d.indptr.cpu(), d.src.cpu(), d.w.cpu(), x.cpu())
+    rows = []
+    for L, pc in tables.items():
+        y = sc.KERNEL(d.indptr, d.src, d.w, x, pieces=pc)
+        if not torch.equal(y.cpu(), sc.segment_spmm_reference(
+                *cpu, long_row_edges=L)):
+            raise AssertionError(f"L={L}: kernel not bit-equal to the plain "
+                                 f"version's ordered CPU sums")
+        rows.append({"L": L, "long_rows": pc.num_long,
+                     "pieces": pc.num_pieces})
+    ms = {L: [] for L in tables}
+    for order in (SWEEP_L, SWEEP_L[::-1]):
+        for L in order:
+            pc = tables[L]
+            ms[L].append(cuda_time_ms(
+                lambda: sc.KERNEL(d.indptr, d.src, d.w, x, pieces=pc), 50))
+    for r in rows:
+        r["ms"] = min(ms[r["L"]])
+    return rows
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (the launches are
+    queued, not waited for; ``calls`` stays below the launch queue's
+    depth)."""
+    import torch
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - h0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def profile_split(fn, kinds, calls: int = 10) -> tuple:
+    """Device ms and CUDA launches per call of ``fn`` by CUDA kernel (two
+    dicts), from the profiler over ``calls`` calls after one warm-up;
+    ``kinds`` maps a label to a kernel name fragment, tried in order (the
+    first match labels a kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split, count = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = next((k for k, frag in kinds.items() if frag in e.key),
+                        "other")
+            split[name] = (split.get(name, 0.0)
+                           + e.self_device_time_total / 1e3 / calls)
+            count[name] = count.get(name, 0) + e.count / calls
+    return split, count
+
+
+def spmm_profile_split(sc, d, x) -> tuple:
+    """Device ms and CUDA launches per application of each CUDA kernel one
+    application launches: the row kernel and the long rows' reduction."""
+    return profile_split(
+        lambda: sc.KERNEL(d.indptr, d.src, d.w, x, pieces=d.pieces),
+        {"long_rows": "long_rows_kernel", "rows": "rows_kernel"})
 
 
 def phase_slice(dev, tmp: Path) -> dict:
@@ -390,17 +501,22 @@ def phase_slice(dev, tmp: Path) -> dict:
     for role, d in dirs.items():
         x32 = tables[role].contiguous()
         xb = x32.to(torch.bfloat16)
+        pc = d.pieces
         csr = torch.sparse_csr_tensor(d.indptr, d.src.long(), d.w,
                                       size=(d.num_dst, d.num_src))
         deg = d.indptr[1:] - d.indptr[:-1]
         entry = {"role": role, "num_dst": d.num_dst, "num_src": d.num_src,
                  "edges": int(d.src.numel()), "max_dst_degree": int(deg.max()),
-                 "empty_dst_rows": int((deg == 0).sum())}
+                 "empty_dst_rows": int((deg == 0).sum()),
+                 "long_row_edges": pc.edges_per_piece,
+                 "long_rows": pc.num_long, "pieces": pc.num_pieces}
         # plain, kernel, kernel, plain: compare within one call
         p1 = cuda_time_ms(lambda: sc.segment_spmm_reference(
             d.indptr, d.src, d.w, x32), 20)
-        k1 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x32), 50)
-        k2 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x32), 50)
+        k1 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x32,
+                                            pieces=pc), 50)
+        k2 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x32,
+                                            pieces=pc), 50)
         p2 = cuda_time_ms(lambda: sc.segment_spmm_reference(
             d.indptr, d.src, d.w, x32), 20)
         entry["ms"] = min(k1, k2)
@@ -408,12 +524,29 @@ def phase_slice(dev, tmp: Path) -> dict:
         entry["library_ms"] = cuda_time_ms(lambda: torch.sparse.mm(csr, x32),
                                            20)
         entry["bound_ms"] = bound_ms(d, x32.shape[1], 4)
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["bf16_ms"] = cuda_time_ms(
-            lambda: sc.KERNEL(d.indptr, d.src, d.w, xb), 50)
+            lambda: sc.KERNEL(d.indptr, d.src, d.w, xb, pieces=pc), 50)
         entry["bf16_plain_ms"] = cuda_time_ms(
             lambda: sc.segment_spmm_reference(d.indptr, d.src, d.w, xb), 20)
         entry["bf16_bound_ms"] = bound_ms(d, xb.shape[1], 2)
+        entry["sweep"] = sweep_long_row_edges(sc, d, x32)
+        # device time alone: back-to-back calls of a short kernel can be
+        # held to the host's pace, which the events above then measure
+        entry["device_split_ms"], entry["cuda_launches_by_kernel"] = \
+            spmm_profile_split(sc, d, x32)
+        entry["device_ms"] = sum(entry["device_split_ms"].values())
+        entry["cuda_launches_per_application"] = sum(
+            entry["cuda_launches_by_kernel"].values())
+        # the row kernel, and the reduction when a row is long
+        if entry["cuda_launches_per_application"] != 1 + (pc.num_long > 0):
+            raise AssertionError(
+                f"{role}: {entry['cuda_launches_by_kernel']} CUDA launches "
+                f"an application, {pc.num_long} long rows")
+        entry["host_us_per_call"] = host_us_per_call(
+            lambda: sc.KERNEL(d.indptr, d.src, d.w, x32, pieces=pc))
         per_dir.append(entry)
+    split = per_dir[0]["device_split_ms"]
     with torch.no_grad():
         prop_ms = cuda_time_ms(lambda: tr.model.propagate(params), 10)
         prop_plain_ms = cuda_time_ms(lambda: tr_t.model.propagate(params), 5)
@@ -428,14 +561,23 @@ def phase_slice(dev, tmp: Path) -> dict:
         torch.cuda.synchronize()
         evals[name] = 1e3 * (time.perf_counter() - h0)
     log("[phase 5] times (ms): " + "; ".join(
-        f"{e['role']} kernel {e['ms']:.4f} plain {e['plain_ms']:.4f} "
-        f"sparse.mm {e['library_ms']:.4f} bound {e['bound_ms']:.4f} | bf16 "
-        f"kernel {e['bf16_ms']:.4f} plain {e['bf16_plain_ms']:.4f} bound "
-        f"{e['bf16_bound_ms']:.4f}" for e in per_dir)
+        f"{e['role']} (L={e['long_row_edges']}: {e['long_rows']} long rows, "
+        f"{e['pieces']} pieces, {e['cuda_launches_per_application']:g} CUDA "
+        f"launches an application, profiler) kernel {e['ms']:.4f} plain "
+        f"{e['plain_ms']:.4f} sparse.mm {e['library_ms']:.4f} bound {e['bound_ms']:.4f} "
+        f"({100 * e['bound_share']:.1f}% of bound; device time "
+        f"{e['device_ms']:.4f}; wrapper host time {e['host_us_per_call']:.1f}"
+        f" us a call) | bf16 kernel "
+        f"{e['bf16_ms']:.4f} plain {e['bf16_plain_ms']:.4f} bound "
+        f"{e['bf16_bound_ms']:.4f} | L sweep " + ", ".join(
+            f"{r['L']}: {r['ms']:.4f}" for r in e["sweep"])
+        for e in per_dir)
+        + f"; K1 by CUDA kernel (profiler, ms per apply) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items())
         + f"; propagate kernel {prop_ms:.3f} plain {prop_plain_ms:.3f}; "
         f"evaluate sampled {evals['sampled']:.1f} full {evals['full']:.1f}")
     return {"launches": launches, "launches_by_kernel": counts,
-            "directions": per_dir,
+            "directions": per_dir, "item_from_user_split_ms": split,
             "propagate_ms": prop_ms, "propagate_plain_ms": prop_plain_ms,
             "evaluate_ms": evals, "metrics_sampled": res_s,
             "metrics_full": res_f, "jaccard_mean": float(jac.mean()),
@@ -694,13 +836,17 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
         deg = d.indptr[1:] - d.indptr[:-1]
         p1 = cuda_time_ms(lambda: sc.segment_spmm_reference(
             d.indptr, d.src, d.w, x), 20)
-        k1 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x), 30)
-        k2 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x), 30)
+        k1 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x,
+                                            pieces=d.pieces), 30)
+        k2 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x,
+                                            pieces=d.pieces), 30)
         p2 = cuda_time_ms(lambda: sc.segment_spmm_reference(
             d.indptr, d.src, d.w, x), 20)
         bwd.append({"role": role, "num_dst": d.num_dst, "num_src": d.num_src,
                     "edges": int(d.src.numel()),
                     "max_dst_degree": int(deg.max()),
+                    "long_rows": d.pieces.num_long,
+                    "pieces": d.pieces.num_pieces,
                     "ms": min(k1, k2), "plain_ms": min(p1, p2),
                     "library_ms": cuda_time_ms(
                         lambda: torch.sparse.mm(csr, x), 20),
@@ -747,7 +893,7 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
             by_kernel[e.key[:60]] = (by_kernel.get(e.key[:60], 0.0)
                                      + e.self_device_time_total / 1e3)
     device_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     profile_out = {"window_steps": 3, "window_ms": window_ms,
                    "device_ms": device_ms, "busy_share": device_ms / window_ms,
                    "top_kernels_ms": dict(top)}
@@ -917,8 +1063,10 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
     for layer in range(3):
         i = cs.apply_chunked_padded(p_iu, u)
         u = cs.apply_chunked_padded(p_ui, i)
-        ci = sc.segment_spmm(c_iu.indptr, c_iu.src, c_iu.w, cu)
-        cu = sc.segment_spmm(c_ui.indptr, c_ui.src, c_ui.w, ci)
+        ci = sc.segment_spmm(c_iu.indptr, c_iu.src, c_iu.w, cu,
+                             pieces=c_iu.pieces)
+        cu = sc.segment_spmm(c_ui.indptr, c_ui.src, c_ui.w, ci,
+                             pieces=c_ui.pieces)
         if bool((u[lay_u.rows:] != 0).any() or (i[lay_i.rows:] != 0).any()):
             raise AssertionError(f"padded chain layer {layer}: a pad row is "
                                  f"not zero")
@@ -998,23 +1146,11 @@ def phase_probes(dev, dirs) -> dict:
         raise AssertionError(f"probe results out of bound: {bad}, chain "
                              f"{grid['chain']}")
     # the chunked item<-user apply split by kernel: chunk pass, carry pass
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cs = import_module(f"{PKG}.ops.chunk_spmm")
     iu = dirs["items<-users"]
     plan = wk.plan_for(iu, dev)
-    cs.chunk_spmm_blocks(plan, iu["x"])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            cs.chunk_spmm_blocks(plan, iu["x"])
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            name = "carry" if "carry_kernel" in e.key else (
-                "chunk" if "chunk_kernel" in e.key else "other")
-            split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e4
+    split, _ = profile_split(lambda: cs.chunk_spmm_blocks(plan, iu["x"]),
+                             {"carry": "carry_kernel", "chunk": "chunk_kernel"})
     log(f"[phase 10] probes at reference scale in {wall:.1f}s: launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items())
         + "; every variant within the fp32 bound of the CSR kernel, chain "
@@ -1138,8 +1274,11 @@ def run(dev, out_path=None) -> int:
     summary, ptxas = build_kernels()
     log(f"[phase 1] {smi}; {summary}")
     wk = import_module(f"{PKG}.probes.window_kernel")
+    # the probe graph: both reference-scale directions with random weights
+    probe_dirs = wk.directions(GRAPH["num_users"], GRAPH["num_items"],
+                               GRAPH["edges_per_user"], 64, dev)
 
-    worst = phase_kernel_vs_plain(dev)
+    worst = phase_kernel_vs_plain(dev, probe_dirs)
     worst_adam = phase_adam_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
         res = phase_slice(dev, Path(tmp))
@@ -1148,8 +1287,6 @@ def run(dev, out_path=None) -> int:
         parity = phase_train_parity(dev, Path(tmp), ctx)
         times = phase_train_times(dev, ctx, parity.pop("_trainer"))
     t9 = time.perf_counter()
-    probe_dirs = wk.directions(GRAPH["num_users"], GRAPH["num_items"],
-                               GRAPH["edges_per_user"], 64, dev)
     chunk = phase_chunk_vs_plain(dev, probe_dirs)
     probes = phase_probes(dev, probe_dirs)
     log(f"[phases 9-10] {time.perf_counter() - t9:.1f}s")
@@ -1177,8 +1314,10 @@ def run(dev, out_path=None) -> int:
         "bound_ms": sum(e["bound_ms"] for e in dirs),
         "bound_by": "bytes",
         "library_ms": sum(e["library_ms"] for e in dirs),
+        "long_row_edges": dirs[0]["long_row_edges"],
         "directions": dirs,
         "backward_directions": times["backward_directions"],
+        "item_from_user_split_ms": res["item_from_user_split_ms"],
     }, {
         "name": "fused_adam",
         "route": "cuda",

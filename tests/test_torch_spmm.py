@@ -158,14 +158,15 @@ def test_cpu_tensors_take_the_plain_version():
                                 em.num_dst, "cpu")
     x = torch.randn(em.num_src, 8)
     before = spmm_cuda.KERNEL.launches
-    y = spmm_cuda.segment_spmm(d.indptr, d.src, d.w, x)
+    y = spmm_cuda.segment_spmm(d.indptr, d.src, d.w, x, pieces=d.pieces)
     assert spmm_cuda.KERNEL.launches == before
     assert torch.equal(y, spmm_cuda.segment_spmm_reference(d.indptr, d.src,
                                                            d.w, x))
     with pytest.raises(ValueError):
-        spmm_cuda.segment_spmm(d.indptr, d.src, d.w, x, backend="pallas")
-    with pytest.raises(ValueError):
-        spmm_cuda.KERNEL(d.indptr, d.src, d.w, x)   # no kernel for the CPU
+        spmm_cuda.segment_spmm(d.indptr, d.src, d.w, x, backend="pallas",
+                               pieces=d.pieces)
+    with pytest.raises(ValueError):    # no kernel for the CPU
+        spmm_cuda.KERNEL(d.indptr, d.src, d.w, x, pieces=d.pieces)
 
 
 def test_operator_recipe_end_to_end(small_graph):
@@ -189,8 +190,8 @@ def test_kernel_matches_plain_on_card(D):
     d = CsrDirection.from_edges(em.src, em.dst, em.w, em.num_src,
                                 em.num_dst, "cuda")
     x = torch.randn(em.num_src, D, device="cuda")
-    y1 = spmm_cuda.KERNEL(d.indptr, d.src, d.w, x)
-    y2 = spmm_cuda.KERNEL(d.indptr, d.src, d.w, x)
+    y1 = spmm_cuda.KERNEL(d.indptr, d.src, d.w, x, pieces=d.pieces)
+    y2 = spmm_cuda.KERNEL(d.indptr, d.src, d.w, x, pieces=d.pieces)
     ref = spmm_cuda.segment_spmm_reference(d.indptr, d.src, d.w, x)
     assert torch.equal(y1, y2)
     torch.testing.assert_close(y1, ref, rtol=1e-5, atol=1e-6)
