@@ -1,6 +1,9 @@
 """Command-line interface of the PyTorch package.
 
     python -m beyond_binary_..._tpu_torch.cli build-graph --jsonl R.jsonl --out D/
+    python -m ..._tpu_torch.cli train-cred --jsonl R.jsonl --out D/
+                                           [--plots] [--checkpoint [--resume]]
+                                           [k=v ...]
     python -m ..._tpu_torch.cli merge-user-ids --npy cred.npy --graph D/graph.npz
                                                --out D/cred.csv
     python -m ..._tpu_torch.cli train-rec --graph D/graph.npz --preset cu_message
@@ -10,7 +13,7 @@
                                          --preset cu_message [k=v ...]
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs on the
-CPU).  ``train-cred`` (Stage A) comes with a later slice.
+CPU).
 """
 
 from __future__ import annotations
@@ -45,6 +48,48 @@ def cmd_build_graph(args):
     graph.save_npz(out / "graph.npz")
     print(f"Saved graph to {out/'graph.npz'}")
     print(graph.summary())
+
+
+def cmd_train_cred(args):
+    """Stage A: ingest, labels, features and the heterograph (written as
+    OUT/user_labels.csv, user_features.csv, graph_hetero.npz), then train
+    the credibility model and export its scores and parameters; returns
+    the ``CredFitResult``."""
+    from ..data.features import (compute_user_features, save_features_csv,
+                                 save_labels_csv)
+    from ..data.ingest import ingest_jsonl
+    from ..graph.hetero import build_heterograph
+    from ..train.checkpoint import TrainCheckpointer
+    from ..train.cred_trainer import CredTrainer
+    from ..utils.config import CredConfig, IngestConfig
+    from ..utils.device import resolve_device
+
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: the port trains on one device; a sharded Stage-A "
+            "forward is ROADMAP.md Queue 1 item 11 (parallel/)")
+    device = resolve_device(args.device)
+    ccfg = CredConfig().with_overrides(args.overrides)
+    table = ingest_jsonl(args.jsonl, IngestConfig(jsonl_path=args.jsonl),
+                         collect_token_hashes=(ccfg.feature_set == "v1"))
+    feats = compute_user_features(table, ccfg)
+    hg = build_heterograph(table, feats,
+                           graph_feature_set=ccfg.graph_feature_set)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    # reference intermediate artifacts (main.py steps 1/3)
+    save_labels_csv(out / "user_labels.csv", table, feats.labels)
+    save_features_csv(out / "user_features.csv", table, feats)
+    hg.save_npz(out / "graph_hetero.npz")
+    if args.plots:
+        from ..eval.report import plot_feature_distributions
+        plot_feature_distributions(feats, out / "plots")
+    trainer = CredTrainer(hg, ccfg, device=device)
+    ck = TrainCheckpointer(out / "cred_ckpt", keep=args.ckpt_keep,
+                           every=args.ckpt_every) if args.checkpoint else None
+    result = trainer.fit(checkpointer=ck, resume=args.resume)
+    trainer.export(result, out)
+    return result
 
 
 def cmd_merge_user_ids(args):
@@ -122,6 +167,24 @@ def build_parser():
     _add_overrides(p)
     p.set_defaults(fn=cmd_build_graph)
 
+    p = sub.add_parser("train-cred", help="Stage A: train credibility model")
+    p.add_argument("--jsonl", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--plots", action="store_true",
+                   help="write fake-vs-genuine feature distribution PNGs "
+                        "(needs matplotlib)")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="full-state checkpoints under OUT/cred_ckpt")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest OUT/cred_ckpt state")
+    p.add_argument("--mesh", default=None,
+                   help="not supported yet: training runs on one device")
+    p.add_argument("--ckpt-keep", type=int, default=3)
+    p.add_argument("--ckpt-every", type=int, default=1)
+    _add_device(p)
+    _add_overrides(p)
+    p.set_defaults(fn=cmd_train_cred)
+
     p = sub.add_parser("merge-user-ids",
                        help="join a credibility .npy with a graph's id map "
                             "into the CSV contract (merge_user_id.py)")
@@ -162,7 +225,8 @@ def build_parser():
 
 def run(argv=None):
     """Run one command; returns what the command returns (``evaluate``:
-    its metrics dict; ``train-rec``: its ``FitResult``)."""
+    its metrics dict; ``train-rec``: its ``FitResult``; ``train-cred``:
+    its ``CredFitResult``)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

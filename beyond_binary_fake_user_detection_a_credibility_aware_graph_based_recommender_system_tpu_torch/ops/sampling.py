@@ -13,8 +13,11 @@ device, whole batch at once:
     table built in float64 on the host (O(1) per draw; a float32
     inverse-CDF would make tail items unsamplable at 10M-item catalogs).
 
+  * weighted sampling without replacement (Stage A's SLAS draws) is a
+    Gumbel top-k over the candidates' logits.
+
 Random numbers come from an explicit ``torch.Generator`` on the device the
-draws are made on.  Gumbel top-k comes with Stage A.
+draws are made on.
 """
 
 from __future__ import annotations
@@ -245,3 +248,37 @@ def sample_negatives_popmix(gen: torch.Generator, csr: DeviceCSR,
     fallback = torch.randint(0, sampler.num_items, rows.shape, generator=gen,
                              device=rows.device)
     return torch.where(good.any(dim=-1), chosen, fallback)
+
+
+def gumbel_topk(gen: Optional[torch.Generator], logits: torch.Tensor, k: int,
+                mask: Optional[torch.Tensor] = None,
+                uniforms: Optional[torch.Tensor] = None):
+    """Weighted sampling WITHOUT replacement via Gumbel top-k
+    (``JAX: ops/sampling.py:280-303``).
+
+    Exactly k indices along the last axis with inclusion probabilities
+    following the softmax of ``logits`` (the reference's
+    ``rng.choice(..., replace=False, p=w)`` SLAS draw, main.py:758-807).
+    Masked slots are excluded (score ``-inf``).  Returns ``(indices,
+    gumbel_scores)``.  ``uniforms`` (the shape of ``logits``) replaces the
+    draw from ``gen``, so a test can feed the JAX package's uniforms.
+
+    Tied scores come out lowest index first, as ``lax.top_k`` orders them
+    (a stable descending sort cut to k; ``torch.topk`` orders ties
+    otherwise).  When k exceeds the candidate width the whole pool is
+    taken and padded to k with index 0 and score ``-inf``."""
+    if uniforms is None:
+        uniforms = torch.rand(logits.shape, generator=gen,
+                              device=logits.device, dtype=logits.dtype)
+    g = -torch.log(-torch.log(uniforms + 1e-20) + 1e-20)
+    scored = logits + g
+    if mask is not None:
+        scored = torch.where(mask, scored, float("-inf"))
+    P = scored.shape[-1]
+    vals, idx = torch.sort(scored, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    if k > P:
+        pad = scored.shape[:-1] + (k - P,)
+        vals = torch.cat([vals, vals.new_full(pad, float("-inf"))], dim=-1)
+        idx = torch.cat([idx, idx.new_zeros(pad)], dim=-1)
+    return idx, vals

@@ -57,11 +57,28 @@ Phases (each prints one line; any failure exits non-zero):
      (S=512 through both routes);
  10. the three probes (``probes/window_kernel.py``, ``kernel_grid.py``,
      ``vmem_gather.py``) at reference scale, counted: every chunked and
-     gather kernel must launch there.
+     gather kernel must launch there;
+ 11. Stage A: a synthetic review JSONL at the two-stage scale of
+     ``scripts/two_stage_demo.py`` (600,000 lines, 60,000 users, 250,000
+     items), then the CLI's train-cred in its default SLAS mode for 2
+     epochs with slas_pad_deg=128: no SpMM launch, 10 Adam launches a step,
+     finite epoch losses, the six artefacts, min-max scores in [0, 1];
+ 12. full-graph mode on the same heterograph for 2 epochs: 8 SpMM launches
+     a step plus 2 per holdout evaluation and 2 for the inference, 10 Adam
+     launches a step; 3 steps against the plain path (parameters within
+     rtol 1e-5 / atol 1e-6, losses within 1e-6) and two kernel-path runs
+     bit-identical;
+ 13. the two-stage contract: build-graph on the same JSONL, then train-rec
+     --cred on the CSV train-cred wrote (one finite score per graph user,
+     some taken from the CSV, finite metrics);
+ 14. Stage-A times: a step split into forward+loss, backward and Adam, one
+     epoch and a profiled 3-step window in both modes, train-cred's wall in
+     full-graph mode, the SpMM in Stage A's directions against its bound
+     and torch.sparse.mm, and gumbel_topk at the user draw's shape.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
-3, 6 and 10) and read after it; a kernel that is not on that path must show
-0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
+3, 6, 10, 11 and 12) and read after it; a kernel that is not on that path
+must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  The line before the last holds the kernels'
 JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -785,13 +802,87 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
             "bit_identical": bit, "_trainer": tr_k}
 
 
+def step_split(loss_of, params, opt, lr: float, n: int) -> dict:
+    """One train step split into forward+loss, backward and Adam (CUDA
+    events), averaged over ``n`` steps; ``loss_of(leaves, j)`` is step
+    ``j``'s loss of the parameter leaves."""
+    import torch
+    from importlib import import_module
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    adam = import_module(f"{PKG}.ops.adam")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(n)]
+    for j, e in enumerate(ev):
+        with trainer_mod.deterministic_algorithms():
+            e[0].record()
+            leaves = {k: p.detach().requires_grad_() for k, p in
+                      params.items()}
+            loss = loss_of(leaves, j)
+            e[1].record()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            e[2].record()
+            adam.adam_step(params, dict(zip(leaves, grads)), opt, lr)
+            e[3].record()
+    torch.cuda.synchronize()
+    return {name: sum(e[i].elapsed_time(e[i + 1]) for e in ev) / n
+            for i, name in enumerate(("forward_loss", "backward", "adam"))}
+
+
+def profile_steps(step, n: int = 3) -> dict:
+    """Where the device time of a step goes: device busy share and device
+    time by kernel (profiler) over a window of ``n`` calls of ``step(j)``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for j in range(n):
+            step(j)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - h0)
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.key[:60]] = (by_kernel.get(e.key[:60], 0.0)
+                                     + e.self_device_time_total / 1e3)
+    device_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return {"window_steps": n, "window_ms": window_ms, "device_ms": device_ms,
+            "busy_share": device_ms / window_ms, "top_kernels_ms": dict(top)}
+
+
+def time_direction(role: str, d, x) -> dict:
+    """One SpMM direction at ``x``'s shape: the kernel (plain, kernel,
+    kernel, plain, best of each), ``torch.sparse.mm`` and the bound."""
+    import torch
+    from importlib import import_module
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    csr = torch.sparse_csr_tensor(d.indptr, d.src.long(), d.w,
+                                  size=(d.num_dst, d.num_src))
+    deg = d.indptr[1:] - d.indptr[:-1]
+    p1 = cuda_time_ms(lambda: sc.segment_spmm_reference(
+        d.indptr, d.src, d.w, x), 20)
+    k1 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x,
+                                        pieces=d.pieces), 30)
+    k2 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x,
+                                        pieces=d.pieces), 30)
+    p2 = cuda_time_ms(lambda: sc.segment_spmm_reference(
+        d.indptr, d.src, d.w, x), 20)
+    return {"role": role, "num_dst": d.num_dst, "num_src": d.num_src,
+            "edges": int(d.src.numel()), "max_dst_degree": int(deg.max()),
+            "long_rows": d.pieces.num_long, "pieces": d.pieces.num_pieces,
+            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "library_ms": cuda_time_ms(lambda: torch.sparse.mm(csr, x), 20),
+            "bound_ms": bound_ms(d, x.shape[1], 4)}
+
+
 def phase_train_times(dev, ctx: dict, tr) -> dict:
     import torch
     from importlib import import_module
     tm = import_module(f"{PKG}.probes._timing")
-    trainer_mod = import_module(f"{PKG}.train.trainer")
     adam = import_module(f"{PKG}.ops.adam")
-    sc = import_module(f"{PKG}.ops.spmm_cuda")
     ac = import_module(f"{PKG}.ops.adam_cuda")
     cfg = tr.cfg
     params = _params(ctx, dev)
@@ -805,52 +896,18 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
     # an epoch's batches after two warm-up steps
     for b in batches[:2]:
         tr.train_step(params, opt, *b)
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
-          for _ in batches]
-    for e, b in zip(ev, batches):
-        with trainer_mod.deterministic_algorithms():
-            e[0].record()
-            leaves = {k: p.detach().requires_grad_() for k, p in
-                      params.items()}
-            loss = tr._loss_fn(leaves, *b)
-            e[1].record()
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-            e[2].record()
-            adam.adam_step(params, dict(zip(leaves, grads)), opt, cfg.lr)
-            e[3].record()
-    torch.cuda.synchronize()
-    split = {name: sum(e[i].elapsed_time(e[i + 1]) for e in ev) / len(ev)
-             for i, name in enumerate(("forward_loss", "backward", "adam"))}
+    split = step_split(lambda leaves, j: tr._loss_fn(leaves, *batches[j]),
+                       params, opt, cfg.lr, nb)
     step_ms = cuda_time_ms(lambda: tr.train_step(params, opt, *batches[0]), 10,
                            warmup=2)
 
     # each backward SpMM direction (the transposes), at the cotangent's shape
-    bwd = []
-    for role, d in (("bwd of item<-user (user-row shape)",
-                     tr.model.item_from_user.bwd),
-                    ("bwd of user<-item (item-row shape, hub)",
-                     tr.model.user_from_item.bwd)):
-        x = torch.randn(d.num_src, cfg.emb_dim, device=dev, generator=gen)
-        csr = torch.sparse_csr_tensor(d.indptr, d.src.long(), d.w,
-                                      size=(d.num_dst, d.num_src))
-        deg = d.indptr[1:] - d.indptr[:-1]
-        p1 = cuda_time_ms(lambda: sc.segment_spmm_reference(
-            d.indptr, d.src, d.w, x), 20)
-        k1 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x,
-                                            pieces=d.pieces), 30)
-        k2 = cuda_time_ms(lambda: sc.KERNEL(d.indptr, d.src, d.w, x,
-                                            pieces=d.pieces), 30)
-        p2 = cuda_time_ms(lambda: sc.segment_spmm_reference(
-            d.indptr, d.src, d.w, x), 20)
-        bwd.append({"role": role, "num_dst": d.num_dst, "num_src": d.num_src,
-                    "edges": int(d.src.numel()),
-                    "max_dst_degree": int(deg.max()),
-                    "long_rows": d.pieces.num_long,
-                    "pieces": d.pieces.num_pieces,
-                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                    "library_ms": cuda_time_ms(
-                        lambda: torch.sparse.mm(csr, x), 20),
-                    "bound_ms": bound_ms(d, cfg.emb_dim, 4)})
+    bwd = [time_direction(role, d, torch.randn(d.num_src, cfg.emb_dim,
+                                               device=dev, generator=gen))
+           for role, d in (("bwd of item<-user (user-row shape)",
+                            tr.model.item_from_user.bwd),
+                           ("bwd of user<-item (item-row shape, hub)",
+                            tr.model.user_from_item.bwd))]
 
     # the Adam kernel per table: plain, kernel, kernel, plain; then
     # torch.optim.Adam(fused=True) on the same leaf as the yardstick
@@ -877,26 +934,8 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
             "bound_ms": tm.bound_ms(ADAM_BYTES * numel, ADAM_FLOPS * numel)})
 
     # where the device time of a step goes: a profiled window of 3 steps
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        for b in batches[2:5]:
-            tr.train_step(params, opt, *b)
-        torch.cuda.synchronize()
-        window_ms = 1e3 * (time.perf_counter() - h0)
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.key[:60]] = (by_kernel.get(e.key[:60], 0.0)
-                                     + e.self_device_time_total / 1e3)
-    device_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    profile_out = {"window_steps": 3, "window_ms": window_ms,
-                   "device_ms": device_ms, "busy_share": device_ms / window_ms,
-                   "top_kernels_ms": dict(top)}
+    profile_out = profile_steps(
+        lambda j: tr.train_step(params, opt, *batches[2 + j]))
 
     # the cold start of a fresh process: the first call of
     # torch.use_deterministic_algorithms (which imports torch._inductor; the
@@ -948,9 +987,11 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
             f"bound {e['bound_ms']:.4f}" for e in leaves)
         + f"; epoch {out['epoch_ms']:.1f} (draw {out['epoch_draw_ms']:.1f}, "
         f"{nb} steps {out['epoch_steps_ms']:.1f}); profiled 3 steps: device "
-        f"busy {device_ms:.2f} of {window_ms:.2f} ms "
+        f"busy {profile_out['device_ms']:.2f} of "
+        f"{profile_out['window_ms']:.2f} ms "
         f"({100 * profile_out['busy_share']:.1f}%), by kernel "
-        + ", ".join(f"{k} {v:.2f}" for k, v in top)
+        + ", ".join(f"{k} {v:.2f}"
+                    for k, v in profile_out["top_kernels_ms"].items())
         + f"; fresh process: first torch.use_deterministic_algorithms "
         f"{cold[0]:.1f} ms, deterministic gather backward first {cold[1]:.1f} "
         f"ms, second {cold[2]:.2f} ms")
@@ -1162,6 +1203,350 @@ def phase_probes(dev, dirs) -> dict:
             "item_from_user_split_ms": split}
 
 
+# --------------------------------------------------------------------------
+# phases 11-14: Stage A (train-cred) in SLAS and full-graph mode
+# --------------------------------------------------------------------------
+
+# the review stream of scripts/two_stage_demo.py at its defaults (the repo's
+# two-stage scale)
+CRED_REVIEWS = dict(lines=600_000, users=60_000, items=250_000)
+CRED_EPOCHS = 2               # of 100 (CredConfig.epochs)
+# the SLAS candidate cap of the JAX package's 10M run: uncapped, the zipf
+# head item's degree would size each (I, P) table beyond the card
+CRED_PAD_DEG = 128
+CRED_LEAVES = 10              # Adam launches a step: one per parameter leaf
+CRED_ARTEFACTS = ("user_labels.csv", "user_features.csv", "graph_hetero.npz",
+                  "credibility_scores_minmax.npy",
+                  "credibility_scores_minmax_with_user_id.csv",
+                  "cred_model.npz")
+
+
+def write_reviews(path: Path, lines: int, users: int, items: int,
+                  seed: int = 0) -> None:
+    """``make_synthetic_reviews`` of ``scripts/two_stage_demo.py``: the same
+    draws in the same order, so the same JSONL (lognormal user activity,
+    zipf-1.05 item popularity, ratings skewed to 4-5)."""
+    rng = np.random.default_rng(seed)
+    user_w = rng.lognormal(0.0, 1.2, users)
+    item_w = 1.0 / np.arange(1, items + 1) ** 1.05
+    u = rng.choice(users, size=lines, p=user_w / user_w.sum())
+    i = rng.choice(items, size=lines, p=item_w / item_w.sum())
+    ratings = rng.choice([1.0, 2.0, 3.0, 4.0, 5.0], size=lines,
+                         p=[0.06, 0.06, 0.13, 0.25, 0.50])
+    ts = (1.45e12 + rng.integers(0, int(1.5e11), lines)).astype(np.int64)
+    helpful = rng.choice([0, 1, 2, 3, 8, 15], size=lines,
+                         p=[0.55, 0.2, 0.1, 0.05, 0.06, 0.04])
+    verified = rng.random(lines) < 0.75
+    texts = ["great fit and color really nice quality",
+             "did not like it returned the item",
+             "good value for the price would buy again",
+             "terrible don't buy this product it broke"]
+    with open(path, "w") as f:
+        for k in range(lines):
+            f.write(json.dumps({
+                "user_id": f"U{u[k]:07d}", "parent_asin": f"B{i[k]:08d}",
+                "rating": float(ratings[k]), "timestamp": int(ts[k]),
+                "helpful_vote": int(helpful[k]),
+                "verified_purchase": bool(verified[k]), "title": "review",
+                "text": texts[k % 4]}) + "\n")
+
+
+def cred_steps_per_epoch(hg, batch_size: int) -> int:
+    """Steps of one Stage-A epoch: the 80% train split of the labelled
+    users in batches (``train/cred_trainer.py``)."""
+    n = int(0.8 * int((hg.user_y >= 0).sum()))
+    return -(-n // min(batch_size, n))
+
+
+def _check_scores(res, num_users: int, tag: str) -> None:
+    losses = [h["loss"] for h in res.history]
+    if len(losses) != CRED_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: epoch losses {losses}")
+    s = res.cred_minmax
+    if s.shape != (num_users,) or not np.isfinite(s).all() \
+            or s.min() < 0.0 or s.max() != 1.0:
+        raise AssertionError(f"{tag}: min-max scores {s.shape} in "
+                             f"[{s.min()}, {s.max()}]")
+
+
+def phase_cred_slas(dev, tmp: Path, jsonl: Path) -> dict:
+    """Phase 11: the CLI's train-cred in its default (SLAS) mode, counted."""
+    import torch
+    from importlib import import_module
+    cli = import_module(f"{PKG}.cli.main")
+    hetero = import_module(f"{PKG}.graph.hetero")
+    config = import_module(f"{PKG}.utils.config")
+    out = tmp / "cred"
+    # ---- this path, counted (every kernel's count) ----
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli.run(["train-cred", "--jsonl", str(jsonl), "--out", str(out),
+                   "--device", str(dev), f"epochs={CRED_EPOCHS}",
+                   f"slas_pad_deg={CRED_PAD_DEG}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hg = hetero.HeteroGraph.load_npz(out / "graph_hetero.npz")
+    cfg = config.CredConfig()
+    nb = cred_steps_per_epoch(hg, cfg.batch_size)
+    # no SpMM: SLAS builds no operator; one Adam launch per leaf a step
+    counts = read_counts({"fused_adam": CRED_LEAVES * nb * CRED_EPOCHS},
+                         "cred_slas path")
+    missing = [a for a in CRED_ARTEFACTS if not (out / a).is_file()]
+    if missing:
+        raise AssertionError(f"train-cred wrote no {missing}")
+    _check_scores(res, hg.num_users, "train-cred (slas)")
+    labels = hg.user_y
+    log(f"[phase 11] train-cred (slas, hidden {cfg.hidden_dim}, k "
+        f"{cfg.k_item_neigh}x{cfg.k_user_neigh}, batch {cfg.batch_size}, "
+        f"slas_pad_deg {CRED_PAD_DEG}; reduced: {CRED_EPOCHS} of "
+        f"{cfg.epochs} epochs, the candidate cap) on {CRED_REVIEWS['lines']:,}"
+        f" review lines: {hg.num_users:,} users, {hg.num_items:,} items, "
+        f"{hg.num_edges:,} edges, labelled {int((labels == 1).sum()):,} "
+        f"genuine / {int((labels == 0).sum()):,} fake; {nb} steps an epoch; "
+        f"wall {wall:.1f}s, epoch seconds "
+        f"{[round(h['seconds'], 2) for h in res.history]}, losses "
+        f"{[round(h['loss'], 6) for h in res.history]}, holdout AUC "
+        f"{res.history[-1]['holdout_auc']:.4f}; launches segment_spmm "
+        f"{counts['segment_spmm']}, fused_adam {counts['fused_adam']} = "
+        f"{CRED_LEAVES} x {nb} x {CRED_EPOCHS}; six artefacts written, "
+        f"scores in [0, 1] with max 1")
+    return {"launches_by_kernel": counts, "wall_s": wall,
+            "steps_per_epoch": nb, "history": res.history,
+            "num_users": hg.num_users, "num_items": hg.num_items,
+            "num_edges": hg.num_edges, "_hg": hg, "_out": out}
+
+
+def phase_cred_full_graph(dev, hg) -> dict:
+    """Phase 12: full-graph mode at the same scale, counted, and 3 steps
+    held against the plain path."""
+    import torch
+    from importlib import import_module
+    ct = import_module(f"{PKG}.train.cred_trainer")
+    config = import_module(f"{PKG}.utils.config")
+    adam = import_module(f"{PKG}.ops.adam")
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    ac = import_module(f"{PKG}.ops.adam_cuda")
+    cfg = config.CredConfig(trainer_mode="full_graph", epochs=CRED_EPOCHS)
+    # ---- this path, counted (every kernel's count) ----
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = ct.CredTrainer(hg, cfg, device=dev)
+    t1 = time.perf_counter()
+    res = tr.fit()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    nb = tr.steps_per_epoch
+    # 4 SpMM a step forward (2 views x 2 operators) and 4 backward; 2 per
+    # holdout evaluation (the early view) and 2 for the final inference
+    want_spmm = 8 * nb * CRED_EPOCHS + 2 * CRED_EPOCHS + 2
+    counts = read_counts({"segment_spmm": want_spmm,
+                          "fused_adam": CRED_LEAVES * nb * CRED_EPOCHS},
+                         "cred_full_graph path")
+    _check_scores(res, hg.num_users, "full-graph fit")
+
+    # ---- 3 steps, kernel path vs plain path, from one state ----
+    tr_p = ct.CredTrainer(hg, cfg, device=dev, backend="torch",
+                          verbose=False)
+    params0, _, _ = tr.init_state(seed=0)
+    order = np.random.default_rng(0).permutation(tr.train_users)
+    users, mask = tr.epoch_batches(None, order)
+    steps = [s % users.shape[0] for s in range(PARITY_STEPS)]
+
+    def run(t):
+        params = {k: v.clone() for k, v in params0.items()}
+        opt = adam.adam_init(params)
+        losses = torch.stack([t.train_step(params, opt, users[s], mask[s])
+                              for s in steps])
+        torch.cuda.synchronize()
+        return params, losses
+
+    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    pk, lk = run(tr)
+    got = (sc.KERNEL.launches - before[0], ac.KERNEL.launches - before[1])
+    if got != (8 * PARITY_STEPS, CRED_LEAVES * PARITY_STEPS):
+        raise AssertionError(f"kernel path launched {got}")
+    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    pp, lp = run(tr_p)
+    if (sc.KERNEL.launches, ac.KERNEL.launches) != before:
+        raise AssertionError("the plain path launched a kernel")
+    pk2, lk2 = run(tr)
+    loss_err = float((lk - lp).abs().max())
+    if loss_err > LOSS_ATOL or not torch.isfinite(lk).all():
+        raise AssertionError(f"Stage-A losses differ from the plain path by "
+                             f"{loss_err} > {LOSS_ATOL}")
+    p_err = 0.0
+    for k in pk:
+        diff = (pk[k] - pp[k]).abs()
+        if bool((diff > TRAIN_ATOL + TRAIN_RTOL * pp[k].abs()).any()):
+            raise AssertionError(f"{k} differs from the plain path by "
+                                 f"{float(diff.max())}")
+        p_err = max(p_err, float(diff.max()))
+    bit = torch.equal(lk, lk2) and all(torch.equal(pk[k], pk2[k]) for k in pk)
+    if not bit:
+        raise AssertionError("two Stage-A kernel-path runs are not "
+                             "bit-identical")
+    log(f"[phase 12] full-graph fit (hidden {cfg.hidden_dim}, batch "
+        f"{cfg.batch_size}, {nb} steps an epoch, {CRED_EPOCHS} epochs): "
+        f"set-up {t1 - t0:.1f}s, fit {t2 - t1:.1f}s, epoch seconds "
+        f"{[round(h['seconds'], 2) for h in res.history]}, losses "
+        f"{[round(h['loss'], 6) for h in res.history]}, holdout AUC "
+        f"{res.history[-1]['holdout_auc']:.4f}; launches segment_spmm "
+        f"{counts['segment_spmm']} = 8 x {nb} x {CRED_EPOCHS} + 2 x "
+        f"{CRED_EPOCHS} + 2, fused_adam {counts['fused_adam']} = "
+        f"{CRED_LEAVES} x {nb} x {CRED_EPOCHS}; {PARITY_STEPS} steps vs the "
+        f"plain path: losses {[round(float(x), 7) for x in lk]} max diff "
+        f"{loss_err:.3g} (tol {LOSS_ATOL:g}), params max abs diff "
+        f"{p_err:.3g} (tol {TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|ref|); two "
+        f"kernel-path runs bit-identical: {bit}")
+    return {"launches_by_kernel": counts, "setup_s": t1 - t0,
+            "fit_s": t2 - t1, "steps_per_epoch": nb, "history": res.history,
+            "loss_max_diff": loss_err, "param_max_diff": p_err,
+            "bit_identical": bit, "_trainer": tr}
+
+
+def phase_two_stage(dev, tmp: Path, jsonl: Path, cred_dir: Path) -> dict:
+    """Phase 13: build-graph on the same JSONL, then train-rec --cred on
+    the CSV that train-cred wrote."""
+    import torch
+    from importlib import import_module
+    cli = import_module(f"{PKG}.cli.main")
+    build = import_module(f"{PKG}.graph.build")
+    presets = import_module(f"{PKG}.configs.presets")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    csv = cred_dir / "credibility_scores_minmax_with_user_id.csv"
+    t0 = time.perf_counter()
+    cli.run(["build-graph", "--jsonl", str(jsonl), "--out", str(tmp / "g"),
+             "--device", str(dev)])
+    t1 = time.perf_counter()
+    graph = build.BipartiteGraph.load_npz(tmp / "g" / "graph.npz")
+    # the vector train-rec loads: its trainer reads the CSV by user id
+    cred = trainer_mod.RecTrainer(
+        presets.get_preset("cu_message").replace(cred_csv_path=str(csv)),
+        graph, device=dev, verbose=False).cred
+    if cred.shape != (graph.num_users,) or not np.isfinite(cred).all():
+        raise AssertionError(f"credibility vector {cred.shape}")
+    changed = int((cred != 1.0).sum())
+    if changed == 0:
+        raise AssertionError("no graph user took a score from the CSV")
+    t2 = time.perf_counter()
+    res = cli.run(["train-rec", "--graph", str(tmp / "g" / "graph.npz"),
+                   "--preset", "cu_message", "--cred", str(csv),
+                   "--device", str(dev), "epochs=1"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    metrics = [res.test_metrics[K][m] for K in res.test_metrics
+               for m in ("precision", "recall", "ndcg")]
+    if not (np.isfinite(metrics).all() and np.isfinite(res.history[0].loss)):
+        raise AssertionError(f"train-rec metrics {res.test_metrics}")
+    log(f"[phase 13] two-stage contract: build-graph on the same JSONL in "
+        f"{t1 - t0:.1f}s ({graph.summary()}); train-rec --preset cu_message "
+        f"--cred <train-cred CSV> epochs=1 in {t3 - t2:.1f}s: {changed:,} of "
+        f"{graph.num_users:,} graph users took a score from the CSV (min "
+        f"{cred.min():.4f}, mean {cred.mean():.4f}), loss "
+        f"{res.history[0].loss:.6f}, test R@20 "
+        f"{res.test_metrics[20]['recall']:.6f}")
+    return {"build_graph_s": t1 - t0, "train_rec_s": t3 - t2,
+            "users_scored": changed, "graph_users": graph.num_users,
+            "test_metrics": res.test_metrics}
+
+
+def _mode_times(tr) -> dict:
+    """A step's split, the back-to-back step, one epoch (host clock) and a
+    profiled 3-step window, from a fresh state of ``tr``."""
+    import torch
+    params, opt, gen = tr.init_state(seed=1)
+    users, mask = tr.epoch_batches(gen)
+    nb = users.shape[0]
+
+    def step(j):
+        tr.train_step(params, opt, users[j % nb], mask[j % nb], gen)
+
+    step(0)
+    step(1)
+    split = step_split(
+        lambda leaves, j: tr._loss(leaves, users[j % nb], mask[j % nb], gen),
+        params, opt, tr.cfg.lr, min(10, nb))
+    step_ms = cuda_time_ms(lambda: step(0), 10, warmup=2)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    loss = float(tr.run_epoch(params, opt, gen).mean().item())
+    epoch_ms = 1e3 * (time.perf_counter() - h0)
+    if not np.isfinite(loss):
+        raise AssertionError(f"epoch loss {loss}")
+    return {"step_ms": step_ms, "step_split_ms": split, "epoch_ms": epoch_ms,
+            "steps_per_epoch": tr.steps_per_epoch,
+            "profile": profile_steps(step)}
+
+
+def phase_cred_times(dev, tmp: Path, jsonl: Path, hg, tr_full) -> dict:
+    """Phase 14: Stage-A times on the card."""
+    import torch
+    from importlib import import_module
+    ct = import_module(f"{PKG}.train.cred_trainer")
+    config = import_module(f"{PKG}.utils.config")
+    cli = import_module(f"{PKG}.cli.main")
+    sampling = import_module(f"{PKG}.ops.sampling")
+    tr_slas = ct.CredTrainer(hg, config.CredConfig(slas_pad_deg=CRED_PAD_DEG),
+                             device=dev, verbose=False)
+    modes = {"slas": _mode_times(tr_slas), "full_graph": _mode_times(tr_full)}
+
+    # train-cred through the CLI in full-graph mode (the SLAS wall is
+    # phase 11's)
+    t0 = time.perf_counter()
+    cli.run(["train-cred", "--jsonl", str(jsonl), "--out",
+             str(tmp / "cred_fg"), "--device", str(dev),
+             f"epochs={CRED_EPOCHS}", "trainer_mode=full_graph"])
+    torch.cuda.synchronize()
+    modes["full_graph"]["train_cred_wall_s"] = time.perf_counter() - t0
+
+    # the SpMM in Stage A's directions (the early view), D = hidden
+    D = tr_full.cfg.hidden_dim
+    view = tr_full.model.views["early"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dirs = [time_direction(role, d, torch.randn(d.num_src, D, device=dev,
+                                                generator=gen))
+            for role, d in (
+                ("item<-user (hub)", view.item_from_user.fwd),
+                ("user<-item", view.user_from_item.fwd),
+                ("bwd of item<-user (user rows)", view.item_from_user.bwd),
+                ("bwd of user<-item (item rows, hub)",
+                 view.user_from_item.bwd))]
+
+    # gumbel_topk at the user draw's shape: (B * k_item, P)
+    cfg = tr_slas.cfg
+    shape = (cfg.batch_size * cfg.k_item_neigh, CRED_PAD_DEG)
+    logits = torch.randn(shape, device=dev, generator=gen)
+    gmask = torch.rand(shape, device=dev, generator=gen) < 0.5
+    topk = {"shape": list(shape), "k": cfg.k_user_neigh,
+            "ms": cuda_time_ms(lambda: sampling.gumbel_topk(
+                gen, logits, cfg.k_user_neigh, gmask), 20),
+            # torch.topk on the same scores: the yardstick of the stable sort
+            "torch_topk_ms": cuda_time_ms(lambda: torch.topk(
+                logits, cfg.k_user_neigh, dim=-1), 20)}
+
+    log("[phase 14] Stage-A times (ms): " + "; ".join(
+        f"{m} step {t['step_ms']:.3f} (forward+loss "
+        f"{t['step_split_ms']['forward_loss']:.3f}, backward "
+        f"{t['step_split_ms']['backward']:.3f}, Adam "
+        f"{t['step_split_ms']['adam']:.3f}), epoch {t['epoch_ms']:.1f} "
+        f"({t['steps_per_epoch']} steps), profiled 3 steps: device busy "
+        f"{t['profile']['device_ms']:.2f} of {t['profile']['window_ms']:.2f} "
+        f"ms ({100 * t['profile']['busy_share']:.1f}%), by kernel "
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    list(t["profile"]["top_kernels_ms"].items())[:6])
+        for m, t in modes.items())
+        + f"; train-cred full_graph wall "
+        f"{modes['full_graph']['train_cred_wall_s']:.1f}s; SpMM (early view, "
+        f"D={D}) " + "; ".join(
+            f"{e['role']} ({e['edges']:,} edges, max degree "
+            f"{e['max_dst_degree']:,}, {e['long_rows']} long rows) kernel "
+            f"{e['ms']:.4f} plain {e['plain_ms']:.4f} sparse.mm "
+            f"{e['library_ms']:.4f} bound {e['bound_ms']:.4f}" for e in dirs)
+        + f"; gumbel_topk {tuple(shape)} k={cfg.k_user_neigh} "
+        f"{topk['ms']:.4f} (torch.topk {topk['torch_topk_ms']:.4f})")
+    return {"modes": modes, "spmm_directions": dirs, "gumbel_topk": topk}
+
+
 def launches_by_path(paths: dict, name: str) -> dict:
     """One kernel's launches on each counted path (``paths``: path name to
     the counts read after it)."""
@@ -1290,22 +1675,51 @@ def run(dev, out_path=None) -> int:
     chunk = phase_chunk_vs_plain(dev, probe_dirs)
     probes = phase_probes(dev, probe_dirs)
     log(f"[phases 9-10] {time.perf_counter() - t9:.1f}s")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        jsonl = tmp / "reviews.jsonl"
+        t = time.perf_counter()
+        write_reviews(jsonl, **CRED_REVIEWS)
+        log(f"[phase 11] wrote {CRED_REVIEWS['lines']:,} review lines "
+            f"({CRED_REVIEWS['users']:,} users, {CRED_REVIEWS['items']:,} "
+            f"items) in {time.perf_counter() - t:.1f}s")
+        seconds = {}
+        t = time.perf_counter()
+        cred_slas = phase_cred_slas(dev, tmp, jsonl)
+        hg, cred_dir = cred_slas.pop("_hg"), cred_slas.pop("_out")
+        seconds[11] = time.perf_counter() - t
+        t = time.perf_counter()
+        cred_full = phase_cred_full_graph(dev, hg)
+        tr_full = cred_full.pop("_trainer")
+        seconds[12] = time.perf_counter() - t
+        t = time.perf_counter()
+        two_stage = phase_two_stage(dev, tmp, jsonl, cred_dir)
+        seconds[13] = time.perf_counter() - t
+        t = time.perf_counter()
+        cred_times = phase_cred_times(dev, tmp, jsonl, hg, tr_full)
+        seconds[14] = time.perf_counter() - t
+    log("[phases 11-14] seconds " + ", ".join(
+        f"{k}: {v:.1f}" for k, v in seconds.items()))
 
     dirs = res["directions"]
     leaves = times["adam_leaves"]
     # every kernel's count, read after each counted path: serving (phase
-    # 3), training (phase 6), the probes (phase 10)
+    # 3), training (phase 6), the probes (phase 10), Stage A in SLAS mode
+    # (phase 11) and in full-graph mode (phase 12)
     paths = {"serving": res["launches_by_kernel"],
              "training": train["launches_by_kernel"],
-             "probes": probes["launches"]}
+             "probes": probes["launches"],
+             "cred_slas": cred_slas["launches_by_kernel"],
+             "cred_full_graph": cred_full["launches_by_kernel"]}
+    main_paths = ("serving", "training", "cred_slas", "cred_full_graph")
     kernels = [{
         "name": "segment_spmm",
         "route": "cuda",
         "source": f"{PKG}/csrc/segment_spmm.cu",
         "replaces": REPLACES,
-        # the main path's runs: serving (phase 3) and training (phase 6)
-        "launches": (paths["serving"]["segment_spmm"]
-                     + paths["training"]["segment_spmm"]),
+        # the main path's runs: serving (phase 3), training (phase 6) and
+        # Stage A (phases 11 and 12)
+        "launches": sum(paths[k]["segment_spmm"] for k in main_paths),
         "launches_by_path": launches_by_path(paths, "segment_spmm"),
         "max_abs_err": worst["fp32"],
         # one Gauss-Seidel layer: one K1-role plus one K2-role application
@@ -1318,12 +1732,13 @@ def run(dev, out_path=None) -> int:
         "directions": dirs,
         "backward_directions": times["backward_directions"],
         "item_from_user_split_ms": res["item_from_user_split_ms"],
+        "cred_directions": cred_times["spmm_directions"],
     }, {
         "name": "fused_adam",
         "route": "cuda",
         "source": f"{PKG}/csrc/fused_adam.cu",
         "replaces": REPLACES_ADAM,
-        "launches": paths["training"]["fused_adam"],
+        "launches": sum(paths[k]["fused_adam"] for k in main_paths),
         "launches_by_path": launches_by_path(paths, "fused_adam"),
         "max_abs_err": worst_adam["max_abs_err"],
         # one train step: both tables
@@ -1342,6 +1757,9 @@ def run(dev, out_path=None) -> int:
              "phase2_worst": worst, "phase2b_worst": worst_adam,
              "ptxas": ptxas, "phase9": chunk, "probes": probes,
              "train": train, "train_parity": parity,
+             "cred_slas": cred_slas, "cred_full_graph": cred_full,
+             "two_stage": two_stage, "cred_times": cred_times,
+             "cred_phase_seconds": seconds,
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves")},

@@ -5,7 +5,9 @@ JAX-written ``best_model.npz`` must print the same metric block as the JAX
 CLI (full mode has no random stream, so the strings are compared exactly).
 ``train-rec --device cpu`` writes the JAX command's three outputs, and the
 JAX ``evaluate`` on the port-written ``best_model.npz`` prints the same
-metrics as the port's.
+metrics as the port's.  ``train-cred --device cpu`` writes the JAX
+command's six artefacts in both trainer modes, its intermediate CSVs equal
+the JAX package's, and the port's ``train-rec --cred`` reads its scores.
 """
 
 import json
@@ -116,11 +118,121 @@ def test_default_device_is_cuda(saved):
 
 
 def test_training_commands_not_registered():
-    """Stage A's train-cred comes with a later slice; train-rec is here."""
+    """Both training commands are registered now: train-cred (Stage A) and
+    train-rec parse with the JAX command's flags and default to the card;
+    train-cred's --mesh raises, as train-rec's does."""
+    ap = t_cli.build_parser()
+    args = ap.parse_args(["train-cred", "--jsonl", "r.jsonl", "--out", "d",
+                          "--plots", "--checkpoint", "--resume",
+                          "--ckpt-keep", "2", "--ckpt-every", "3",
+                          "epochs=2", "trainer_mode=full_graph"])
+    assert args.fn is t_cli.cmd_train_cred and args.device == "cuda"
+    assert (args.plots, args.checkpoint, args.resume, args.ckpt_keep,
+            args.ckpt_every) == (True, True, True, 2, 3)
+    assert args.overrides == ["epochs=2", "trainer_mode=full_graph"]
     with pytest.raises(SystemExit):
-        t_cli.build_parser().parse_args(["train-cred"])
-    args = t_cli.build_parser().parse_args(["train-rec", "--graph", "g.npz"])
+        ap.parse_args(["train-cred", "--out", "d"])      # --jsonl required
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        t_cli.run(["train-cred", "--jsonl", "r.jsonl", "--out", "d",
+                   "--mesh", "all", "--device", "cpu"])
+    args = ap.parse_args(["train-rec", "--graph", "g.npz"])
     assert args.fn is t_cli.cmd_train_rec and args.device == "cuda"
+
+
+CRED_ARTEFACTS = ["cred_model.npz", "credibility_scores_minmax.npy",
+                  "credibility_scores_minmax_with_user_id.csv",
+                  "graph_hetero.npz", "user_features.csv", "user_labels.csv"]
+
+
+@pytest.fixture(scope="module")
+def reviews(tmp_path_factory):
+    """A tiny review JSONL with both label classes."""
+    rng = np.random.default_rng(4)
+    helpful_p = rng.uniform(0, 1, 40)
+    recs = []
+    for _ in range(500):
+        u = int(rng.integers(40))
+        recs.append({"user_id": f"u{u}", "parent_asin": f"i{rng.integers(25)}",
+                     "rating": float(rng.integers(1, 6)),
+                     "timestamp": int(1.5e12 + rng.integers(0, 10 ** 10)),
+                     "helpful_vote": int(rng.random() < helpful_p[u]) * 9,
+                     "verified_purchase": bool(rng.random() < 0.7),
+                     "text": "good fit" if u % 2 else "broke don't buy"})
+    path = tmp_path_factory.mktemp("reviews") / "r.jsonl"
+    path.write_text("\n".join(json.dumps(r) for r in recs) + "\n")
+    return path
+
+
+@pytest.mark.parametrize("mode", ["slas", "full_graph"])
+def test_train_cred_writes_the_six_artefacts(reviews, tmp_path, mode):
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu.data.features import (
+        compute_user_features, save_features_csv, save_labels_csv)
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu.data.ingest import ingest_jsonl
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu.utils.config import IngestConfig
+    out = tmp_path / "cred"
+    res = t_cli.run(["train-cred", "--jsonl", str(reviews), "--out", str(out),
+                     "--checkpoint", "--device", "cpu", "epochs=2",
+                     "hidden_dim=8", "batch_size=16", f"trainer_mode={mode}"])
+    assert sorted(p.name for p in out.iterdir() if p.is_file()) == \
+        CRED_ARTEFACTS
+    assert any((out / "cred_ckpt").glob("*.pt"))
+    assert [h["epoch"] for h in res.history] == [1, 2]
+    assert np.isfinite([h["loss"] for h in res.history]).all()
+    scores = np.load(out / "credibility_scores_minmax.npy")
+    assert np.array_equal(scores, res.cred_minmax)
+    assert scores.min() == 0.0 and scores.max() == 1.0
+    # the intermediate CSVs are the JAX package's, byte for byte
+    table = ingest_jsonl(reviews, IngestConfig(jsonl_path=str(reviews),
+                                               backend="python"))
+    feats = compute_user_features(table)
+    save_labels_csv(tmp_path / "labels.csv", table, feats.labels)
+    save_features_csv(tmp_path / "features.csv", table, feats)
+    assert (out / "user_labels.csv").read_bytes() == \
+        (tmp_path / "labels.csv").read_bytes()
+    assert (out / "user_features.csv").read_bytes() == \
+        (tmp_path / "features.csv").read_bytes()
+
+
+def test_train_cred_plots_and_jax_reads_the_params(reviews, tmp_path):
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu.models.cred_model import init_cred_params
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu.train.checkpoint import load_params_npz
+    import jax
+    pytest.importorskip("matplotlib")
+    out = tmp_path / "cred"
+    t_cli.run(["train-cred", "--jsonl", str(reviews), "--out", str(out),
+               "--plots", "--device", "cpu", "epochs=1", "hidden_dim=8",
+               "batch_size=16"])
+    assert len(list((out / "plots").glob("dist_*.png"))) == 7
+    got = load_params_npz(out / "cred_model.npz")
+    want = init_cred_params(jax.random.PRNGKey(0), 7, 2, 8)
+    assert {k: v.shape for k, v in got.items()} == \
+        {k: v.shape for k, v in want.items()}
+    assert all(v.dtype == np.float32 for v in got.values())
+
+
+def test_train_cred_then_train_rec_reads_the_scores(reviews, tmp_path):
+    """The two-stage contract: train-rec --cred loads the CSV that the
+    port's train-cred wrote, by user id, into its LightGCN weights."""
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.graph.build import BipartiteGraph
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.train.trainer import RecTrainer
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.configs.presets import get_preset
+    t_cli.run(["train-cred", "--jsonl", str(reviews), "--out",
+               str(tmp_path / "cred"), "--device", "cpu", "epochs=1",
+               "hidden_dim=8", "batch_size=16"])
+    t_cli.run(["build-graph", "--jsonl", str(reviews), "--out",
+               str(tmp_path / "g"), "--device", "cpu"])
+    csv = tmp_path / "cred" / "credibility_scores_minmax_with_user_id.csv"
+    graph = BipartiteGraph.load_npz(tmp_path / "g" / "graph.npz")
+    tr = RecTrainer(get_preset("cu_message").replace(
+        cred_csv_path=str(csv), emb_dim=8), graph, device="cpu",
+        verbose=False)
+    assert tr.cred.shape == (graph.num_users,)
+    assert np.isfinite(tr.cred).all() and (tr.cred != 1.0).any()
+    res = t_cli.run(["train-rec", "--graph", str(tmp_path / "g" / "graph.npz"),
+                     "--preset", "cu_message", "--cred", str(csv),
+                     "--device", "cpu", "epochs=1", "emb_dim=8",
+                     "batch_size=64", "eval_mode=full"])
+    assert np.isfinite(res.history[0].loss)
 
 
 def test_train_rec_writes_outputs_and_jax_evaluate_agrees(saved, tmp_path,
@@ -167,6 +279,9 @@ def test_port_imports_without_jax():
         for p in (ROOT / PORT_PKG).rglob("*.py") if p.name != "__main__.py")
     mods = [m.removesuffix(".__init__") for m in mods]
     assert PORT_PKG + ".probes.window_kernel" in mods
+    for m in ("data.features", "graph.hetero", "models.cred_model",
+              "models.cred_slas", "ops.slas", "train.cred_trainer"):
+        assert f"{PORT_PKG}.{m}" in mods, m
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['jaxlib'] = None; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
