@@ -13,9 +13,14 @@ SpMM layout (``ops/segment_plan.py``, ``ops/chunk_spmm.py``,
 ``csrc/chunk_spmm.cu``) and a slab row gather (``ops/row_gather.py``,
 ``csrc/row_gather.cu``) against the main path's kernel.
 
-Stage B is ported: ``train-rec`` / ``RecTrainer.fit`` (BPR training with
-checkpoints), ``evaluate`` on saved parameters, the full-catalog and sampled
-rankings, and ``eval.retrieval.topk_for_users``.  Stage A is a later slice.
+Both stages are ported.  Stage A: ``train-cred`` / ``CredTrainer.fit``
+(ingest through the native C++ reader ``data/native/`` or the Python one,
+labels, features, the heterograph, and the credibility model in its SLAS
+and full-graph modes).  Stage B: ``train-rec`` / ``RecTrainer.fit`` (BPR
+training with checkpoints), ``evaluate`` on saved parameters, the
+full-catalog and sampled rankings, and ``eval.retrieval.topk_for_users``.
+The training steps' row gathers (``ops/gather.py``) take the SpMM kernel as
+their backward, a segment-sum of the gradient rows in a fixed order.
 
     import beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch as bbt
 """

@@ -144,6 +144,10 @@ def cmd_evaluate(args):
     from ..train.checkpoint import load_params_npz
     from ..train.trainer import RecTrainer, format_metrics_block
 
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: the port evaluates on one device; sharded evaluation is "
+            "ROADMAP.md Queue 1 item 11 (parallel/)")
     cfg = get_preset(args.preset).with_overrides(args.overrides)
     if args.cred:
         cfg = cfg.replace(cred_csv_path=args.cred)
@@ -217,6 +221,8 @@ def build_parser():
     p.add_argument("--preset", default="vanilla")
     p.add_argument("--cred", default=None)
     p.add_argument("--split", default="test")
+    p.add_argument("--mesh", default=None,
+                   help="not supported yet: evaluation runs on one device")
     _add_device(p)
     _add_overrides(p)
     p.set_defaults(fn=cmd_evaluate)

@@ -13,8 +13,11 @@ Ingestion emits columnar numpy arrays (ids already interned,
 ratings/timestamps as flat vectors) that downstream feature engineering
 consumes with vectorized segment ops, and that transfer to the device once
 as int32/float32 buffers.  This module is the PyTorch package's own copy of
-the JAX package's numpy-only reader; the native C++ parser is not ported
-yet, so the pure-Python path here is the only one.
+the JAX package's reader.  ``IngestConfig.backend`` picks the parser as the
+JAX package does: "auto" runs the native C++ reader (``data/native/``)
+whenever g++ builds it and the Python reader below otherwise, "native"
+raises when the library cannot be built, and "python" runs the Python
+reader, whose semantics the native one reproduces byte for byte.
 """
 
 from __future__ import annotations
@@ -164,12 +167,16 @@ def ingest_jsonl(path, cfg: Optional[IngestConfig] = None,
     split-count parity test).
     """
     cfg = cfg or IngestConfig(jsonl_path=str(path))
-    if cfg.backend == "native":
-        # "auto" runs the Python reader below, which is the semantics the
-        # native parser must reproduce byte for byte.
-        raise NotImplementedError(
-            "the native C++ ingest parser is not ported yet "
-            "(ROADMAP.md Queue 1, data/native/)")
+    if cfg.backend in ("auto", "native"):
+        from .native import ingest_native
+        try:
+            ingest_native.load_library()
+        except ImportError:
+            if cfg.backend == "native":
+                raise
+        else:
+            return ingest_native.ingest_jsonl_native(
+                path, cfg, with_text_stats, collect_token_hashes)
 
     user_ids: List[str] = []
     item_ids: List[str] = []

@@ -17,7 +17,10 @@ for all edges) bakes its normalized weights into two ``ops/spmm``
 operators, built once on the host (the weights do not depend on the
 parameters).  Gradients flow through the operators' ``_SpmmFn``, whose
 backward is the same SpMM kernel on the transpose, so one view's forward
-and backward are 2 + 2 kernel applications.
+and backward are 2 + 2 kernel applications.  Each view also keeps the plans
+of the smoothness term's two gathers (``ops/gather.py``): ``h_u2[src]`` has
+the rows of ``user_from_item.fwd`` and ``h_i1[dst]`` those of
+``item_from_user.fwd``, whose stable sorts are the gathers' edge orders.
 
 Parameters are a ``Dict[str, Tensor]`` of ``(fan_in, fan_out)`` weights and
 ``(fan_out,)`` biases, as in the JAX package, so a layer is ``x @ W + b``
@@ -34,6 +37,7 @@ import torch
 
 from ..graph.hetero import HeteroGraph
 from ..graph.operators import EdgeMap
+from ..ops.gather import GatherPlan, plan_from_direction
 from ..ops.spmm import SpmmOperator
 from ..utils.config import CredConfig
 
@@ -99,6 +103,9 @@ class CredView:
     w_u2i_norm: torch.Tensor          # (E,) fp32 normalized weights
     src: torch.Tensor                 # (E,) int64 user per edge
     dst: torch.Tensor                 # (E,) int64 item per edge
+    # the gather plans of h_u2[src] and h_i1[dst] (None with a custom
+    # operator_factory)
+    smooth_plans: Optional[Tuple[GatherPlan, GatherPlan]] = None
 
 
 def build_cred_view(hg: HeteroGraph, cfg: CredConfig, view: Optional[str],
@@ -107,7 +114,8 @@ def build_cred_view(hg: HeteroGraph, cfg: CredConfig, view: Optional[str],
     """normalize_per_dst over the view's edges only (masked weights), both
     directions (main.py:680-688), in float64 on the host as the JAX package
     does.  The operators are ``SpmmOperator(edge_map, device, backend)``
-    unless ``operator_factory(edge_map)`` builds them."""
+    unless ``operator_factory(edge_map)`` builds them; the smoothness
+    gathers' plans come from the default operators' forward CSRs."""
     u = hg.edges[0].astype(np.int64)
     i = hg.edges[1].astype(np.int64)
     w = ewa_raw_weights(hg.edge_attr, cfg.beta, cfg.gamma)
@@ -121,20 +129,25 @@ def build_cred_view(hg: HeteroGraph, cfg: CredConfig, view: Optional[str],
     np.add.at(denom_u, u, w)
     w_i2u = (w / (denom_u[u] + 1e-12)).astype(np.float32)
 
-    if operator_factory is None:
+    custom = operator_factory is not None
+    if not custom:
         def operator_factory(em):
             return SpmmOperator(em, device, backend=backend)
 
+    item_from_user = operator_factory(EdgeMap(
+        src=u.astype(np.int32), dst=i.astype(np.int32), w=w_u2i,
+        num_src=hg.num_users, num_dst=hg.num_items))
+    user_from_item = operator_factory(EdgeMap(
+        src=i.astype(np.int32), dst=u.astype(np.int32), w=w_i2u,
+        num_src=hg.num_items, num_dst=hg.num_users))
     return CredView(
-        item_from_user=operator_factory(EdgeMap(
-            src=u.astype(np.int32), dst=i.astype(np.int32), w=w_u2i,
-            num_src=hg.num_users, num_dst=hg.num_items)),
-        user_from_item=operator_factory(EdgeMap(
-            src=i.astype(np.int32), dst=u.astype(np.int32), w=w_i2u,
-            num_src=hg.num_items, num_dst=hg.num_users)),
+        item_from_user=item_from_user, user_from_item=user_from_item,
         w_u2i_norm=torch.as_tensor(w_u2i, device=device),
         src=torch.as_tensor(u, device=device),
         dst=torch.as_tensor(i, device=device),
+        smooth_plans=None if custom else (
+            plan_from_direction(user_from_item.fwd),
+            plan_from_direction(item_from_user.fwd)),
     )
 
 

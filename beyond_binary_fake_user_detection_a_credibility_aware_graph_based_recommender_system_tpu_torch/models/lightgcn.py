@@ -30,6 +30,7 @@ import torch
 
 from ..graph.build import BipartiteGraph
 from ..graph.operators import EdgeMap, build_edge_maps
+from ..ops.gather import GatherPlan, gather_rows
 from ..ops.spmm import SpmmOperator
 from ..utils.config import RecConfig
 
@@ -146,36 +147,45 @@ class LightGCN:
         return acc_u / (K + 1), acc_i / (K + 1)
 
     def propagate_rows(self, params: Params, user_rows: torch.Tensor,
-                       item_rows: torch.Tensor
+                       item_rows: torch.Tensor,
+                       plans: Optional[Tuple[GatherPlan, GatherPlan]] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Layer-mean embeddings for SELECTED rows only.
 
         Row-gather commutes with the per-layer accumulation bit-exactly
         (``(sum_k x_k)[r] == sum_k x_k[r]`` elementwise, same fp order), so
         a caller that needs a few rows skips the full-size combined tables.
+        ``plans`` (of ``user_rows`` into the user rows and of ``item_rows``
+        into the item rows, ``ops/gather.py``) give every layer's gathers
+        the segment-sum backward; without them they are plain ``x[rows]``.
         """
         K = self.cfg.num_layers
         prop_dtype = self._prop_dtype()
+        p_u, p_i = plans or (None, None)
+        bk = self.cfg.spmm_backend
+
+        def rows(u, i):
+            return (gather_rows(u, user_rows, p_u, bk).float(),
+                    gather_rows(i, item_rows, p_i, bk).float())
+
+        U = self.num_users
         if self.cfg.propagation == "symmetric":
             x = self._joint_table(params).to(prop_dtype)
-            iid = item_rows + self.num_users
-            au = x[user_rows].float()
-            ai = x[iid].float()
+            au, ai = rows(x[:U], x[U:])
             for _ in range(K):
                 x = self.joint_op(x)
-                au = au + x[user_rows].float()
-                ai = ai + x[iid].float()
+                ru, ri = rows(x[:U], x[U:])
+                au, ai = au + ru, ai + ri
             return au / (K + 1), ai / (K + 1)
 
-        u, i = ego_tables(params, self.num_users)
+        u, i = ego_tables(params, U)
         u = u.to(prop_dtype)
         i = i.to(prop_dtype)
-        au = u[user_rows].float()
-        ai = i[item_rows].float()
+        au, ai = rows(u, i)
         for _ in range(K):
             u, i = self._bipartite_step(u, i)
-            au = au + u[user_rows].float()
-            ai = ai + i[item_rows].float()
+            ru, ri = rows(u, i)
+            au, ai = au + ru, ai + ri
         return au / (K + 1), ai / (K + 1)
 
     # -- scoring ----------------------------------------------------------

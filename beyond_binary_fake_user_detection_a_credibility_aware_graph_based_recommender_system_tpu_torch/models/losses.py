@@ -18,9 +18,11 @@ the reference's variable-length final batch exactly (masked mean).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from ..ops.gather import GatherPlan, gather_rows
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
@@ -71,10 +73,16 @@ def masked_bce(pred: torch.Tensor, labels: torch.Tensor,
 
 def smoothness_loss(h_src: torch.Tensor, h_dst: torch.Tensor,
                     src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-                    min_w: float = 0.0) -> torch.Tensor:
+                    min_w: float = 0.0,
+                    plans: Optional[Tuple[GatherPlan, GatherPlan]] = None,
+                    backend: str = "auto") -> torch.Tensor:
     """mean_e w_e ||h_src[src_e] - h_dst[dst_e]||^2 over edges with w>min_w
-    (main.py:894-907)."""
-    diff = h_src[src] - h_dst[dst]
+    (main.py:894-907).  ``plans`` (of ``src`` and ``dst``) give the two
+    gathers the segment-sum backward of ``ops/gather.py``; without them
+    they are the plain ``h[idx]``."""
+    p_src, p_dst = plans or (None, None)
+    diff = (gather_rows(h_src, src, p_src, backend)
+            - gather_rows(h_dst, dst, p_dst, backend))
     sq = (diff * diff).sum(-1)
     keep = (w > min_w).to(sq.dtype)
     denom = keep.sum()

@@ -5,8 +5,9 @@ launches its kernel on the given stream and returns the ``cudaError_t`` of
 the launch.  :class:`CudaKernel` compiles the source with ``nvcc`` for
 ``sm_90a`` at first use into ``build/torch_kernels/`` (named by the hash of
 the source and the flags, so an edited source is rebuilt), loads it with
-``ctypes`` and counts its launches in ``launches``.  Nothing is compiled
-when a module is imported.
+``ctypes`` and counts its launches in ``launches``; two objects of one
+source (``name`` tells them apart) share the library and count apart.
+Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -39,11 +40,14 @@ def _nvcc() -> str:
 
 class CudaKernel:
     """One compiled source, its C entry point ``symbol`` (returning an
-    ``int`` error code) with ``argtypes``, and its launch counter."""
+    ``int`` error code) with ``argtypes``, and its launch counter, known by
+    ``name`` (the symbol unless given)."""
 
-    def __init__(self, source: Path, symbol: str, argtypes: Sequence):
+    def __init__(self, source: Path, symbol: str, argtypes: Sequence,
+                 name: str = ""):
         self.source = source
         self.symbol = symbol
+        self.name = name or symbol
         self.argtypes = list(argtypes)
         self.launches = 0
         self.build_log = ""
@@ -85,5 +89,5 @@ class CudaKernel:
         """Call the entry point; raise on a refused launch, else count it."""
         rc = self._function()(*args)
         if rc != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: cudaError {rc}")
+            raise RuntimeError(f"{self.name} launch failed: cudaError {rc}")
         self.launches += 1

@@ -25,6 +25,7 @@ autograd, so no ``index_add_`` of the plain version is ever differentiated.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,13 +39,17 @@ _MSG_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 @dataclass(frozen=True)
 class CsrDirection:
     """One direction of an operator as a destination-sorted CSR and the
-    piece table of its long rows."""
+    piece table of its long rows.  ``order`` keeps, on the host, each
+    dst-sorted edge's position in the input edge list: the gather plan of
+    the destination ids (``ops/gather.plan_from_direction``) is that order
+    over the same rows."""
     indptr: torch.Tensor      # (num_dst+1,) int64
     src: torch.Tensor         # (E,) int32, in dst-sorted order
     w: torch.Tensor           # (E,) float32, in dst-sorted order
     num_src: int
     num_dst: int
     pieces: LongRowPieces
+    order: Optional[np.ndarray] = None    # (E,) int64, host
 
     @classmethod
     def from_edges(cls, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
@@ -60,7 +65,7 @@ class CsrDirection:
             src=torch.as_tensor(np.asarray(src, np.int32)[order], device=device),
             w=torch.as_tensor(np.asarray(w, np.float32)[order], device=device),
             num_src=int(num_src), num_dst=int(num_dst),
-            pieces=long_row_pieces(indptr, long_row_edges))
+            pieces=long_row_pieces(indptr, long_row_edges), order=order)
 
 
 class _SpmmFn(torch.autograd.Function):

@@ -19,7 +19,9 @@ any other ``indptr``.
 One application (one call of :func:`segment_spmm`, counted once in
 :data:`KERNEL`'s ``launches``) is one CUDA launch when no row is long and
 two when one is: the row kernel (pieces first, then every row), and the
-reduction of the long rows' partials.
+reduction of the long rows' partials.  The row gathers' backward
+(``ops/gather.py``) runs the same kernel through :data:`GATHER_KERNEL`, which
+counts its applications apart from the operators' (:data:`KERNELS`).
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_kernels/`` and loaded with ``ctypes`` (``ops/cuda_build.py``).
@@ -164,14 +166,14 @@ class SegmentSpmmKernel(CudaKernel):
     """The compiled kernel and its launch counter (``launches``: one per
     application)."""
 
-    def __init__(self):
+    def __init__(self, name: str = ""):
         super().__init__(SOURCE, "segment_spmm",
                          [ctypes.c_void_p] * 5
                          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int]
                          + [ctypes.c_void_p] * 5
                          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_void_p])
+                            ctypes.c_void_p], name)
 
     def __call__(self, indptr: torch.Tensor, src: torch.Tensor,
                  w: torch.Tensor, x: torch.Tensor,
@@ -223,20 +225,24 @@ class SegmentSpmmKernel(CudaKernel):
 
 
 KERNEL = SegmentSpmmKernel()
+GATHER_KERNEL = SegmentSpmmKernel("gather_backward")
+KERNELS = (KERNEL, GATHER_KERNEL)
 
 
 def segment_spmm(indptr: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
                  x: torch.Tensor, backend: str = "auto",
                  out_dtype: Optional[torch.dtype] = None, *,
-                 pieces: LongRowPieces) -> torch.Tensor:
-    """Kernel for a CUDA tensor under ``"auto"``; plain version for a CPU
-    tensor or ``backend="torch"``.  ``pieces`` is the piece table built from
-    this ``indptr`` (:func:`long_row_pieces`); both paths cut long rows at
-    its ``edges_per_piece``."""
+                 pieces: LongRowPieces,
+                 kernel: SegmentSpmmKernel = KERNEL) -> torch.Tensor:
+    """Kernel for a CUDA tensor under ``"auto"`` (launched and counted
+    through ``kernel``); plain version for a CPU tensor or
+    ``backend="torch"``.  ``pieces`` is the piece table built from this
+    ``indptr`` (:func:`long_row_pieces`); both paths cut long rows at its
+    ``edges_per_piece``."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown spmm backend {backend!r}")
     if backend == "torch" or x.device.type == "cpu":
         _check_pieces(pieces, indptr)
         return segment_spmm_reference(indptr, src, w, x, out_dtype,
                                       pieces.edges_per_piece)
-    return KERNEL(indptr, src, w, x, out_dtype, pieces=pieces)
+    return kernel(indptr, src, w, x, out_dtype, pieces=pieces)

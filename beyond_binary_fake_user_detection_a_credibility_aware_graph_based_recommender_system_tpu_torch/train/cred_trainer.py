@@ -19,7 +19,11 @@ Two modes, as in the JAX package:
   * "full_graph": each step runs the two-stage aggregation over the whole
     graph in both temporal views through the SpMM kernel (2 applications a
     view forward, 2 backward), and the smoothness term runs over every
-    early-view edge.
+    early-view edge.  Every row gather of the step takes the SpMM kernel as
+    its backward (``ops/gather.py``, one application each): the smoothness
+    term's two edge gathers with the plans the early view built once, the
+    three seed-row gathers with the plan of the step's seeds, which
+    ``run_epoch`` builds for every step of the epoch at once.
 
 An epoch permutes the train users with the trainer's ``torch.Generator``
 (or takes an injected order), pads the last batch with user 0 and masks it.
@@ -39,7 +43,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +54,7 @@ from ..models import losses
 from ..models.cred_model import CredModel, Params, init_cred_params
 from ..models.cred_slas import build_slas_graph_data, slas_forward
 from ..ops.adam import AdamState, adam_init, adam_step
+from ..ops.gather import GatherPlan, gather_plans, gather_rows
 from ..utils.config import CredConfig
 from ..utils.device import resolve_device
 from .checkpoint import TrainCheckpointer, save_params_npz
@@ -149,9 +154,21 @@ class CredTrainer:
         return params, adam_init(params), gen
 
     # ------------------------------------------------------------------
+    def seed_plans(self, users: torch.Tensor) -> Optional[List[GatherPlan]]:
+        """The gather plans of every step's seeds (``(nb, B)`` users, as
+        :meth:`epoch_batches` gives them) in full-graph mode; None in SLAS
+        mode, whose sampled rows are gathered on the device."""
+        if self.cfg.trainer_mode == "slas":
+            return None
+        return gather_plans(users, self.hg.num_users)
+
     def _loss(self, params: Params, seeds: torch.Tensor, mask: torch.Tensor,
               gen: Optional[torch.Generator] = None,
-              uniforms: Optional[StepUniforms] = None) -> torch.Tensor:
+              uniforms: Optional[StepUniforms] = None,
+              seed_plan: Optional[GatherPlan] = None) -> torch.Tensor:
+        """The step's loss; in full-graph mode ``seed_plan`` (of ``seeds``)
+        gives the seed-row gathers the segment-sum backward, without it they
+        are the plain ``x[seeds]``."""
         cfg = self.cfg
         if cfg.trainer_mode == "slas":
             return self._loss_slas(params, seeds, mask, gen, uniforms)
@@ -159,12 +176,17 @@ class CredTrainer:
         v1 = self.model.views["early"]
         _, h_u2_2, _ = self.model.forward(params, "late")
 
+        def rows(t):
+            return gather_rows(t, seeds, seed_plan, self.backend)
+
         y = self.user_y[seeds]
         keep = (y >= 0) & mask
-        loss_sup = losses.masked_bce(pred1[seeds], y.float(), keep)
+        loss_sup = losses.masked_bce(rows(pred1[:, None])[:, 0], y.float(),
+                                     keep)
         loss_smooth = losses.smoothness_loss(
-            h_u2_1, h_i1_1, v1.src, v1.dst, v1.w_u2i_norm, min_w=0.0)
-        loss_cont = losses.info_nce(h_u2_1[seeds], h_u2_2[seeds],
+            h_u2_1, h_i1_1, v1.src, v1.dst, v1.w_u2i_norm, min_w=0.0,
+            plans=v1.smooth_plans, backend=self.backend)
+        loss_cont = losses.info_nce(rows(h_u2_1), rows(h_u2_2),
                                     tau=cfg.tau_temp, mask=mask)
         return (loss_sup + cfg.lambda_smooth * loss_smooth
                 + cfg.lambda_cont * loss_cont)
@@ -229,14 +251,18 @@ class CredTrainer:
     def train_step(self, params: Params, opt_state: AdamState,
                    seeds: torch.Tensor, mask: torch.Tensor,
                    gen: Optional[torch.Generator] = None,
-                   uniforms: Optional[StepUniforms] = None) -> torch.Tensor:
+                   uniforms: Optional[StepUniforms] = None,
+                   seed_plan: Optional[GatherPlan] = None) -> torch.Tensor:
         """One step: loss, gradients, and the in-place Adam update of
         ``params`` and ``opt_state``.  Returns the loss (0-d, on the
-        device)."""
+        device).  In full-graph mode without ``seed_plan`` the step builds
+        its seeds' plan, which waits for the seeds to reach the host."""
+        if seed_plan is None and self.cfg.trainer_mode != "slas":
+            seed_plan = self.seed_plans(seeds[None])[0]
         with deterministic_algorithms():
             leaves = {k: p.detach().requires_grad_() for k, p in
                       params.items()}
-            loss = self._loss(leaves, seeds, mask, gen, uniforms)
+            loss = self._loss(leaves, seeds, mask, gen, uniforms, seed_plan)
             grads = torch.autograd.grad(loss, list(leaves.values()))
             adam_step(params, dict(zip(leaves, grads)), opt_state,
                       self.cfg.lr, backend=self.backend)
@@ -247,13 +273,16 @@ class CredTrainer:
                   order: Optional[Sequence[int]] = None,
                   uniforms: Optional[Sequence[StepUniforms]] = None
                   ) -> torch.Tensor:
-        """Every step of one epoch; returns the per-step losses on the
-        device.  ``order`` and ``uniforms`` (one :data:`StepUniforms` a
-        step, SLAS mode) replace the draws from ``gen``."""
+        """Every step of one epoch (the seeds' gather plans built first,
+        all at once); returns the per-step losses on the device.  ``order``
+        and ``uniforms`` (one :data:`StepUniforms` a step, SLAS mode)
+        replace the draws from ``gen``."""
         users, mask = self.epoch_batches(gen, order)
+        plans = self.seed_plans(users)
         return torch.stack([
             self.train_step(params, opt_state, users[s], mask[s], gen,
-                            None if uniforms is None else uniforms[s])
+                            None if uniforms is None else uniforms[s],
+                            None if plans is None else plans[s])
             for s in range(users.shape[0])])
 
     # ------------------------------------------------------------------

@@ -9,8 +9,11 @@ The port of the JAX package's ``RecTrainer`` on one device:
     negative up front;
   * each step runs the batch-row loss (propagation through the SpMM kernel,
     BPR + ego L2 (+ fairness)), its backward (the same kernel on each
-    operator's transpose) and one fused Adam kernel launch per parameter
-    table, updating parameters and moments in place;
+    operator's transpose, and on the gather plans of the step's users and
+    items for every batch-row gather, ``ops/gather.py``) and one fused Adam
+    kernel launch per parameter table, updating parameters and moments in
+    place; ``run_epoch`` builds every step's plans once, from the drawn
+    batches;
   * "per_batch" recomputes the K-layer propagation in every step
     (reference-faithful, lightgcn.py:584); "per_epoch" caches the
     propagated rest once per epoch and keeps the ego term live;
@@ -39,6 +42,7 @@ from ..graph.build import BipartiteGraph
 from ..models import losses
 from ..models.lightgcn import LightGCN, Params, ego_tables, init_params
 from ..ops.adam import AdamState, adam_init, adam_step
+from ..ops.gather import GatherPlan, gather_plans, gather_rows
 from ..ops.sampling import (PopMixSampler, sample_negatives_popmix,
                             sample_negatives_uniform, sample_positives)
 from ..utils.config import RecConfig
@@ -46,6 +50,9 @@ from ..utils.device import resolve_device
 from .checkpoint import TrainCheckpointer, save_params_npz
 
 Batches = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# one step's gather plans: its users into the user rows, its positives and
+# negatives (one vector, positives first) into the item rows
+StepPlans = Tuple[GatherPlan, GatherPlan]
 
 
 def format_metrics_block(title: str, res: Dict[int, Dict[str, float]]) -> str:
@@ -76,11 +83,13 @@ def format_metrics_block(title: str, res: Dict[int, Dict[str, float]]) -> str:
 def deterministic_algorithms():
     """Run the enclosed training step with deterministic kernels only.
 
-    The SpMM and Adam kernels use no atomics.  The row gathers of the loss
-    (``x[rows]``, with the hub item in every batch) have ``index_put_``
-    with accumulation as their backward, which on CUDA sorts the indices
-    and sums each row's duplicates in order; this mode makes PyTorch keep
-    to such implementations and raise on any op that has none.  Memory from
+    The SpMM and Adam kernels use no atomics, and the training steps' row
+    gathers take the SpMM kernel as their backward (``ops/gather.py``).
+    Row gathers left stock (those of Stage A's SLAS mode) have
+    ``index_put_`` with accumulation as their backward, which on CUDA sorts
+    the indices and sums each row's duplicates in order; this mode makes
+    PyTorch keep to such implementations and raise on any op that has
+    none.  Memory from
     ``torch.empty`` is not pre-filled: every kernel writes all it allocates.
     The previous settings come back on exit.
 
@@ -200,36 +209,47 @@ class RecTrainer:
         return tuple(x.reshape(nb, B) for x in (users_flat, pos, neg, mask))
 
     # ------------------------------------------------------------------
+    def step_plans(self, users: torch.Tensor, pos: torch.Tensor,
+                   neg: torch.Tensor) -> List[StepPlans]:
+        """The gather plans of every step of ``(nb, B)`` batches, built at
+        once on their device (``ops/gather.gather_plans``)."""
+        return list(zip(
+            gather_plans(users, self.graph.num_users),
+            gather_plans(torch.cat([pos, neg], dim=1), self.graph.num_items)))
+
     def _loss_fn(self, params: Params, users, pos, neg, mask,
                  cached_rest: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                 = None) -> torch.Tensor:
+                 = None, plans: Optional[StepPlans] = None) -> torch.Tensor:
+        """The step's loss; with ``plans`` (:meth:`step_plans`) every
+        batch-row gather has the segment-sum backward, without them the
+        plain ``x[rows]``."""
+        B = users.shape[0]
+        items = torch.cat([pos, neg])
+        p_u, p_i = plans or (None, None)
+        bk = self.cfg.spmm_backend
         if cached_rest is None:
             # batch-row combine: gather each layer's batch rows and average
             # B-row vectors instead of the full tables (bit-identical scores)
-            B = users.shape[0]
-            items = torch.cat([pos, neg])
-            u_rows, i_rows = self.model.propagate_rows(params, users, items)
-            pos_s = (u_rows * i_rows[:B]).sum(-1)
-            neg_s = (u_rows * i_rows[B:]).sum(-1)
-            return self._loss_tail(params, users, pos, neg, mask, pos_s,
-                                   neg_s)
-        # "per_epoch": the propagated rest is cached (constant within the
-        # epoch) but the layer-0 ego term comes from the CURRENT params, so
-        # BPR gradients flow (a cached whole table would leave only L2)
-        rest_u, rest_i = cached_rest
-        ego_u, ego_i = ego_tables(params, self.graph.num_users)
-        scale = 1.0 / (self.cfg.num_layers + 1)
-        user_emb = rest_u + scale * ego_u
-        item_emb = rest_i + scale * ego_i
-        pos_s = LightGCN.score(user_emb, item_emb, users, pos)
-        neg_s = LightGCN.score(user_emb, item_emb, users, neg)
-        return self._loss_tail(params, users, pos, neg, mask, pos_s, neg_s)
-
-    def _loss_tail(self, params: Params, users, pos, neg, mask, pos_s,
-                   neg_s) -> torch.Tensor:
+            u_rows, i_rows = self.model.propagate_rows(params, users, items,
+                                                       plans)
+        else:
+            # "per_epoch": the propagated rest is cached (constant within
+            # the epoch) but the layer-0 ego term comes from the CURRENT
+            # params, so BPR gradients flow (a cached whole table would
+            # leave only L2)
+            rest_u, rest_i = cached_rest
+            ego_u, ego_i = ego_tables(params, self.graph.num_users)
+            scale = 1.0 / (self.cfg.num_layers + 1)
+            u_rows = gather_rows(rest_u + scale * ego_u, users, p_u, bk)
+            i_rows = gather_rows(rest_i + scale * ego_i, items, p_i, bk)
+        # Eq 3.26 (LightGCN.score) on the gathered rows
+        pos_s = (u_rows * i_rows[:B]).sum(-1)
+        neg_s = (u_rows * i_rows[B:]).sum(-1)
         loss = losses.bpr_loss(pos_s, neg_s, mask)
         ego_u, ego_i = ego_tables(params, self.graph.num_users)
-        reg = losses.ego_l2(ego_u[users], ego_i[pos], ego_i[neg], mask)
+        ego_items = gather_rows(ego_i, items, p_i, bk)
+        reg = losses.ego_l2(gather_rows(ego_u, users, p_u, bk),
+                            ego_items[:B], ego_items[B:], mask)
         loss = loss + self.cfg.reg * reg
         if self.cfg.lambda_fair != 0.0:
             fair = losses.fairness_loss(self.pop_norm[pos], pos_s, mask)
@@ -249,14 +269,20 @@ class RecTrainer:
             return user_emb - scale * ego_u, item_emb - scale * ego_i
 
     def train_step(self, params: Params, opt_state: AdamState, users, pos,
-                   neg, mask, cached_rest=None) -> torch.Tensor:
+                   neg, mask, cached_rest=None,
+                   plans: Optional[StepPlans] = None) -> torch.Tensor:
         """One BPR step: loss, gradients, and the in-place Adam update of
         ``params`` and ``opt_state``.  Returns the step's loss (a 0-d
-        tensor on the device)."""
+        tensor on the device).  ``plans`` are the step's gather plans
+        (:meth:`step_plans`); without them the step builds its own, which
+        waits for the batch to reach the host."""
+        if plans is None:
+            plans = self.step_plans(users[None], pos[None], neg[None])[0]
         with deterministic_algorithms():
             leaves = {k: p.detach().requires_grad_() for k, p in
                       params.items()}
-            loss = self._loss_fn(leaves, users, pos, neg, mask, cached_rest)
+            loss = self._loss_fn(leaves, users, pos, neg, mask, cached_rest,
+                                 plans)
             grads = torch.autograd.grad(loss, list(leaves.values()))
             adam_step(params, dict(zip(leaves, grads)), opt_state,
                       self.cfg.lr, backend=self.cfg.spmm_backend)
@@ -265,12 +291,14 @@ class RecTrainer:
     def run_epoch(self, params: Params, opt_state: AdamState,
                   batches: Batches) -> torch.Tensor:
         """Every step of one epoch over pre-drawn ``(users, pos, neg,
-        mask)`` batches; returns the per-step losses on the device."""
+        mask)`` batches, whose gather plans are built first, all at once;
+        returns the per-step losses on the device."""
         users_all, pos_all, neg_all, mask_all = batches
+        plans = self.step_plans(users_all, pos_all, neg_all)
         cached = self._epoch_cache(params)
         return torch.stack([
             self.train_step(params, opt_state, users_all[s], pos_all[s],
-                            neg_all[s], mask_all[s], cached)
+                            neg_all[s], mask_all[s], cached, plans[s])
             for s in range(users_all.shape[0])])
 
     # ------------------------------------------------------------------

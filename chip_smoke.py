@@ -18,6 +18,14 @@ Phases (each prints one line; any failure exits non-zero):
   2b. the fused Adam kernel against its plain version on the card: leaves of
      the two reference-scale tables, (1, 1), (1001, 3) and a misaligned
      view, at t = 1 and t = 1000; two launches must be bit-identical;
+  2c. the row gathers' backward (``ops/gather.py``: the SpMM kernel as a
+     unit-weight segment-sum, counted as ``gather_backward``) on the card:
+     Stage A's hub shape (600,000 ids into 85,675 rows, one row of 60,954)
+     and a Stage-B step's items (8,192 ids into 261,728 rows) with long rows
+     cut at LONG_ROW_EDGES, and the Stage-B shape cut at 8, fp32 and bf16;
+     the plans built on the card equal the host's, two launches and the
+     autograd backward are bit-identical, and every case is bit-equal to
+     the plain version's ordered CPU sums;
   3. the serving slice at full width: the reference-scale graph
      (58,867 users, 261,728 items), the cu_message preset (D=64, K=3), the
      CLI's merge-user-ids, then evaluate --split test in sampled and full
@@ -33,19 +41,22 @@ Phases (each prints one line; any failure exits non-zero):
      version; one propagate, and one sampled and one full evaluate;
   6. the training slice at full width: the CLI's train-rec with the
      cu_message preset (D=64, K=3, batch 4096: 15 steps per epoch) for 2
-     epochs with checkpoints; the launch counters must show 12 SpMM and 2
-     Adam launches per step plus 6 SpMM per evaluation; the losses must be
-     finite and evaluate on the written best_model.npz must reproduce
-     test_metrics.json;
+     epochs with checkpoints; the launch counters must show 12 SpMM, 10
+     gather-backward and 2 Adam launches per step plus 6 SpMM per
+     evaluation; the losses must be finite and evaluate on the written
+     best_model.npz must reproduce test_metrics.json;
   7. 3 train steps from one set of parameters and batches through the
      kernels and through the plain path (spmm_backend=torch): parameters
      within rtol 1e-5 / atol 1e-6, losses within 1e-6; two kernel-path
      runs bit-identical;
   8. times (CUDA events, host clock for the epoch): one train step split
      into forward+loss, backward and Adam; each backward SpMM direction;
+     a step's two gather backwards against their bound, their plain
+     version, index_add_ and the deterministic index_put_ they replace;
      the Adam kernel per table against its plain version,
      torch.optim.Adam(fused=True) and its bound; one epoch; a profiled
-     window of 3 steps (device busy share, device time by kernel);
+     window of 3 steps (device busy share, device time by kernel), which
+     must show no indexing_backward_kernel;
   9. the chunked SpMM kernels (``csrc/chunk_spmm.cu``: full-block, window
      and int16-id chunks) against their plain version on the card: the
      phase-2 graphs plus a source row 0 of inf (pad edges must be skipped),
@@ -60,21 +71,28 @@ Phases (each prints one line; any failure exits non-zero):
      gather kernel must launch there;
  11. Stage A: a synthetic review JSONL at the two-stage scale of
      ``scripts/two_stage_demo.py`` (600,000 lines, 60,000 users, 250,000
-     items), then the CLI's train-cred in its default SLAS mode for 2
-     epochs with slas_pad_deg=128: no SpMM launch, 10 Adam launches a step,
-     finite epoch losses, the six artefacts, min-max scores in [0, 1];
- 12. full-graph mode on the same heterograph for 2 epochs: 8 SpMM launches
-     a step plus 2 per holdout evaluation and 2 for the inference, 10 Adam
-     launches a step; 3 steps against the plain path (parameters within
-     rtol 1e-5 / atol 1e-6, losses within 1e-6) and two kernel-path runs
-     bit-identical;
- 13. the two-stage contract: build-graph on the same JSONL, then train-rec
-     --cred on the CSV train-cred wrote (one finite score per graph user,
-     some taken from the CSV, finite metrics);
+     items), read by the native C++ reader (``backend="native"``: a failed
+     build fails the run) and by the Python reader, timed, equal tables;
+     then the CLI's train-cred in its default SLAS mode for 2 epochs with
+     slas_pad_deg=128: no SpMM and no gather-backward launch, 10 Adam
+     launches a step, finite epoch losses, the six artefacts, min-max
+     scores in [0, 1];
+ 12. full-graph mode on the same heterograph for 2 epochs: 8 SpMM and 5
+     gather-backward launches a step plus 2 SpMM per holdout evaluation and
+     2 for the inference, 10 Adam launches a step; 3 steps against the
+     plain path (parameters within rtol 1e-5 / atol 1e-6, losses within
+     1e-6) and two kernel-path runs bit-identical;
+ 13. the two-stage contract: build-graph on the same JSONL with the native
+     reader, then train-rec --cred on the CSV train-cred wrote (one finite
+     score per graph user, some taken from the CSV, finite metrics);
  14. Stage-A times: a step split into forward+loss, backward and Adam, one
-     epoch and a profiled 3-step window in both modes, train-cred's wall in
-     full-graph mode, the SpMM in Stage A's directions against its bound
-     and torch.sparse.mm, and gumbel_topk at the user draw's shape.
+     epoch and a profiled 3-step window in both modes (full-graph: no
+     indexing_backward_kernel), train-cred's wall in full-graph mode, the
+     SpMM in Stage A's directions against its bound and torch.sparse.mm,
+     the smoothness term's two gather backwards against their bound, plain
+     version, index_add_ and index_put_, the Adam kernel on the ten Stage-A
+     leaves against its plain version, torch.optim.Adam(fused=True) and its
+     bound, and gumbel_topk at the user draw's shape.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
 3, 6, 10, 11 and 12) and read after it; a kernel that is not on that path
@@ -111,6 +129,10 @@ REPLACES_P3 = ("scripts/probe_kernel_grid.py:128 (apply_nopad_trunc, P3; body "
                "_segment_kernel, ops/spmm_pallas.py:406); pallas_call at :153")
 REPLACES_P4 = ("scripts/probe_vmem_gather.py:34 (probe.call, P4; body kernel "
                ":29); pallas_call at :35")
+REPLACES_GATHER = ("no Pallas kernel: XLA's scatter-add, the backward of the "
+                   "JAX package's row gathers (models/losses.py:76, "
+                   "models/lightgcn.py:267-302, train/trainer.py:254-263, "
+                   "train/cred_trainer.py:143-150); the same source as K1/K2")
 # the reference-scale graph (bench.py --scale ref)
 GRAPH = dict(num_users=58_867, num_items=261_728, edges_per_user=7.9, seed=0,
              power=1.0)
@@ -162,12 +184,12 @@ def bound_ms(op, D: int, itemsize: int) -> float:
 
 
 def kernel_counters() -> dict:
-    """Every kernel wrapper of the package, by its entry symbol; each
-    counts its launches in ``launches``."""
+    """Every kernel wrapper of the package, by its name; each counts its
+    launches in ``launches``."""
     from importlib import import_module
     mods = [import_module(f"{PKG}.ops.{m}") for m in
             ("spmm_cuda", "adam_cuda", "chunk_spmm_cuda", "row_gather_cuda")]
-    return {k.symbol: k for m in mods
+    return {k.name: k for m in mods
             for k in getattr(m, "KERNELS", None) or (m.KERNEL,)}
 
 
@@ -299,6 +321,142 @@ def phase_kernel_vs_plain(dev, dirs) -> dict:
         f"ordered CPU sums")
     worst["cases"] = n
     return worst
+
+
+# --------------------------------------------------------------------------
+# phase 2c: the row gathers' backward
+# --------------------------------------------------------------------------
+
+# (ids, table rows, hub row's ids, L): Stage A's h_i1[dst] (the two-stage
+# graph's early view: 600,000 edges, 85,675 items, a hub item of 60,954)
+# and a Stage-B step's items (2 x 4,096 into the reference graph's 261,728)
+GATHER_CASES = {"stage_a_hub": (600_000, 85_675, 60_954, 64),
+                "stage_b_items": (8_192, 261_728, 0, 64),
+                "stage_b_items_L8": (8_192, 261_728, 0, 8)}
+
+
+def _gather_ids(rng, ids: int, rows: int, hub: int) -> np.ndarray:
+    """``hub`` ids of row 0, the rest zipf-1 over rows 1..rows-1, shuffled
+    (a zipf-1 head row gets ~ids / 13 at 261,728 rows: long rows)."""
+    p = 1.0 / np.arange(1, rows)
+    rest = 1 + rng.choice(rows - 1, size=ids - hub, p=p / p.sum())
+    return rng.permutation(np.concatenate([np.zeros(hub, np.int64), rest]))
+
+
+def phase_gather_vs_plain(dev) -> dict:
+    """The gathers' backward (the SpMM kernel through ``GATHER_KERNEL``)
+    against its plain version: the plan built on the card equals the
+    host's definition, two launches and the autograd backward of
+    ``gather_rows`` are bit-identical, and each case is bit-equal to the
+    plain version's ordered CPU sums (fp32 and bf16)."""
+    import torch
+    from importlib import import_module
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    spmm = import_module(f"{PKG}.ops.spmm")
+    ga = import_module(f"{PKG}.ops.gather")
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst, rows = 0.0, []
+    for name, (E, N, hub, L) in GATHER_CASES.items():
+        idx_np = _gather_ids(rng, E, N, hub)
+        idx = torch.as_tensor(idx_np, device=dev)
+        plan = ga.gather_plans(idx[None], N, L)[0]
+        host = spmm.CsrDirection.from_edges(np.arange(E), idx_np, np.ones(E),
+                                            E, N, "cpu", L)
+        same = all(torch.equal(getattr(plan, f).cpu(), getattr(host, f))
+                   for f in ("indptr", "src", "w")) and all(
+            torch.equal(getattr(plan.pieces, f).cpu(),
+                        getattr(host.pieces, f))
+            for f in ("start", "row", "rows", "first"))
+        if not same:
+            raise AssertionError(f"gather {name}: the plan built on the card "
+                                 f"differs from the host's")
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"gather {name} {dt}"
+            g = torch.randn(E, 64, device=dev, generator=gen).to(dt)
+            y1 = sc.GATHER_KERNEL(plan.indptr, plan.src, plan.w, g,
+                                  pieces=plan.pieces)
+            y2 = sc.GATHER_KERNEL(plan.indptr, plan.src, plan.w, g,
+                                  pieces=plan.pieces)
+            table = torch.zeros(N, 64, dtype=dt, device=dev,
+                                requires_grad=True)
+            ga.gather_rows(table, idx, plan).backward(g)
+            ref = sc.segment_spmm_reference(plan.indptr, plan.src, plan.w, g,
+                                            long_row_edges=L)
+            torch.cuda.synchronize()
+            if not (torch.equal(y1, y2) and torch.equal(table.grad, y1)):
+                raise AssertionError(f"{tag}: launches or the autograd "
+                                     f"backward differ")
+            seq = sc.segment_spmm_reference(
+                plan.indptr.cpu(), plan.src.cpu(), plan.w.cpu(), g.cpu(),
+                long_row_edges=L)
+            if not torch.equal(y1.cpu(), seq):
+                raise AssertionError(f"{tag}: not bit-equal to the plain "
+                                     f"version's ordered CPU sums")
+            if dt == torch.float32:
+                worst = max(worst, float((y1 - ref).abs().max()))
+        deg = plan.indptr[1:] - plan.indptr[:-1]
+        rows.append({"case": name, "ids": E, "rows": N, "L": L,
+                     "max_row_ids": int(deg.max()),
+                     "long_rows": plan.pieces.num_long,
+                     "pieces": plan.pieces.num_pieces})
+    log("[phase 2c] gather backward (segment_spmm.cu as gather_backward) vs "
+        "plain: " + "; ".join(
+            f"{r['case']} ({r['ids']:,} ids into {r['rows']:,} rows, largest "
+            f"row {r['max_row_ids']:,}, L={r['L']}: {r['long_rows']} long "
+            f"rows, {r['pieces']} pieces)" for r in rows)
+        + f"; fp32 and bf16, plans built on the card equal the host's, "
+        f"bit-identical reruns and autograd backward, every case bit-equal "
+        f"to the plain version's ordered CPU sums; max fp32 abs err vs the "
+        f"plain version on the card {worst:.3g}")
+    return {"max_abs_err": worst, "cases": rows}
+
+
+def time_gather(role: str, plan, idx, D: int, gen) -> dict:
+    """One gather backward at a plan's shape: the kernel (plain, kernel,
+    kernel, plain, best of each), its bound, the atomic ``index_add_`` (the
+    library call) and the deterministic sorted ``index_put_`` that ATen
+    runs as the stock gather's backward."""
+    import torch
+    from importlib import import_module
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    tm = import_module(f"{PKG}.probes._timing")
+    dev = idx.device
+    N, E, L = plan.num_dst, plan.num_src, plan.pieces.edges_per_piece
+    g = torch.randn(E, D, device=dev, generator=gen)
+
+    def kern():
+        sc.GATHER_KERNEL(plan.indptr, plan.src, plan.w, g, pieces=plan.pieces)
+
+    def plain():
+        sc.segment_spmm_reference(plan.indptr, plan.src, plan.w, g,
+                                  long_row_edges=L)
+
+    p1 = cuda_time_ms(plain, 10)
+    k1 = cuda_time_ms(kern, 30)
+    k2 = cuda_time_ms(kern, 30)
+    p2 = cuda_time_ms(plain, 10)
+    lib = cuda_time_ms(lambda: torch.zeros(N, D, device=dev).index_add_(
+        0, idx, g), 20)
+    with trainer_mod.deterministic_algorithms():
+        put = cuda_time_ms(lambda: torch.zeros(N, D, device=dev).index_put_(
+            (idx,), g, accumulate=True), 5, warmup=1)
+    deg = plan.indptr[1:] - plan.indptr[:-1]
+    return {"role": role, "ids": E, "rows": N, "max_row_ids": int(deg.max()),
+            "long_rows": plan.pieces.num_long,
+            "pieces": plan.pieces.num_pieces, "ms": min(k1, k2),
+            "plain_ms": min(p1, p2), "library_ms": lib, "index_put_ms": put,
+            "bound_ms": tm.csr_bound_ms(plan, D, 4)}
+
+
+def _gather_line(rows) -> str:
+    return "; ".join(
+        f"gather backward {r['role']} ({r['ids']:,} ids into {r['rows']:,} "
+        f"rows, largest {r['max_row_ids']:,}) kernel {r['ms']:.4f} plain "
+        f"{r['plain_ms']:.4f} index_add_ {r['library_ms']:.4f} index_put_ "
+        f"(deterministic) {r['index_put_ms']:.4f} bound {r['bound_ms']:.4f}"
+        for r in rows)
 
 
 # --------------------------------------------------------------------------
@@ -689,11 +847,15 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # segment_spmm: 4K per step x nb steps x epochs + 2K per evaluation;
-    # fused_adam: 2 per step; no other kernel is on this path
+    # gather_backward: K+1 user and K+1 item gathers of the propagation and
+    # the two ego gathers a step; fused_adam: 2 per step; no other kernel is
+    # on this path
     counts = read_counts(
         {"segment_spmm": 4 * K * nb * TRAIN_EPOCHS + 2 * K * n_evals,
+         "gather_backward": (2 * K + 4) * nb * TRAIN_EPOCHS,
          "fused_adam": 2 * nb * TRAIN_EPOCHS}, "training path")
     spmm_n, adam_n = counts["segment_spmm"], counts["fused_adam"]
+    gather_n = counts["gather_backward"]
 
     losses = [h.loss for h in res.history]
     if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)):
@@ -721,10 +883,12 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
         f"{[round(h.seconds, 3) for h in res.history]}, best val "
         f"R@{max(cfg.Ks)} {res.best_val_recall:.6f}, test R@20 "
         f"{written['20']['recall']:.6f}; launches segment_spmm {spmm_n} = "
-        f"{4 * K} x {nb} x {TRAIN_EPOCHS} + {2 * K} x {n_evals}, fused_adam "
-        f"{adam_n} = 2 x {nb} x {TRAIN_EPOCHS}; evaluate on best_model.npz "
-        f"reproduces test_metrics.json (diff {err:.3g})")
-    return {"launches": {"segment_spmm": spmm_n, "fused_adam": adam_n},
+        f"{4 * K} x {nb} x {TRAIN_EPOCHS} + {2 * K} x {n_evals}, "
+        f"gather_backward {gather_n} = {2 * K + 4} x {nb} x {TRAIN_EPOCHS}, "
+        f"fused_adam {adam_n} = 2 x {nb} x {TRAIN_EPOCHS}; evaluate on "
+        f"best_model.npz reproduces test_metrics.json (diff {err:.3g})")
+    return {"launches": {"segment_spmm": spmm_n, "gather_backward": gather_n,
+                         "fused_adam": adam_n},
             "launches_by_kernel": counts,
             "steps_per_epoch": nb, "epoch_losses": losses,
             "epoch_seconds": [h.seconds for h in res.history],
@@ -752,8 +916,11 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
                                   device=dev, verbose=False)
     gen = torch.Generator(device=dev).manual_seed(0)
     users, pos, neg, mask = tr_k.draw_epoch(gen)
-    batches = [(users[s], pos[s], neg[s], mask[s]) for s in
+    # the plans do not depend on the backend: both paths take the same
+    plans = tr_k.step_plans(users, pos, neg)
+    batches = [(users[s], pos[s], neg[s], mask[s], None, plans[s]) for s in
                (i % users.shape[0] for i in range(PARITY_STEPS))]
+    kernels = (sc.KERNEL, sc.GATHER_KERNEL, ac.KERNEL)
 
     def run(tr):
         params = _params(ctx, dev)
@@ -763,15 +930,16 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
         torch.cuda.synchronize()
         return params, losses
 
-    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    before = [k.launches for k in kernels]
     pk, lk = run(tr_k)
-    got = (sc.KERNEL.launches - before[0], ac.KERNEL.launches - before[1])
-    want = (4 * cfg.num_layers * PARITY_STEPS, 2 * PARITY_STEPS)
+    got = tuple(k.launches - b for k, b in zip(kernels, before))
+    want = (4 * cfg.num_layers * PARITY_STEPS,
+            (2 * cfg.num_layers + 4) * PARITY_STEPS, 2 * PARITY_STEPS)
     if got != want:
         raise AssertionError(f"kernel path launched {got}, expected {want}")
-    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    before = [k.launches for k in kernels]
     pp, lp = run(tr_p)
-    if (sc.KERNEL.launches, ac.KERNEL.launches) != before:
+    if [k.launches for k in kernels] != before:
         raise AssertionError("the plain path launched a kernel")
     pk2, lk2 = run(tr_k)
 
@@ -842,15 +1010,24 @@ def profile_steps(step, n: int = 3) -> dict:
             step(j)
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - h0)
-    by_kernel = {}
+    by_kernel, host = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             by_kernel[e.key[:60]] = (by_kernel.get(e.key[:60], 0.0)
                                      + e.self_device_time_total / 1e3)
+        else:
+            host[e.key[:60]] = e.self_cpu_time_total / 1e3
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    # the host's side: self CPU ms by operator (the profiler's own cost
+    # included), what a host-bound step spends its time on
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:12]
+    # ATen's sorted index_put_ backward of a stock row gather
+    stock = sum(v for k, v in by_kernel.items() if "indexing_backward" in k)
     return {"window_steps": n, "window_ms": window_ms, "device_ms": device_ms,
-            "busy_share": device_ms / window_ms, "top_kernels_ms": dict(top)}
+            "busy_share": device_ms / window_ms, "top_kernels_ms": dict(top),
+            "top_host_ops_ms": dict(top_host),
+            "indexing_backward_ms": stock}
 
 
 def time_direction(role: str, d, x) -> dict:
@@ -878,19 +1055,61 @@ def time_direction(role: str, d, x) -> dict:
             "bound_ms": bound_ms(d, x.shape[1], 4)}
 
 
-def phase_train_times(dev, ctx: dict, tr) -> dict:
+def time_adam(params: dict, ab: tuple, lr: float, gen) -> dict:
+    """The Adam kernel over ``params`` (one launch a leaf, as a step runs
+    it): plain, kernel, kernel, plain; ``torch.optim.Adam(fused=True)``
+    over the same leaves (one call) as the yardstick; the bound."""
     import torch
     from importlib import import_module
     tm = import_module(f"{PKG}.probes._timing")
-    adam = import_module(f"{PKG}.ops.adam")
     ac = import_module(f"{PKG}.ops.adam_cuda")
+    a, b = ab
+    state = []
+    for p0 in params.values():
+        p = p0.detach().clone()
+        state.append((p, torch.randn(p.shape, device=p.device,
+                                     generator=gen) * 1e-3,
+                      torch.zeros_like(p), torch.zeros_like(p)))
+
+    def run_k():
+        for t in state:
+            ac.KERNEL(*t, a, b)
+
+    def run_p():
+        for t in state:
+            ac.fused_adam_reference(*t, a, b)
+
+    p1 = cuda_time_ms(run_p, 10)
+    k1 = cuda_time_ms(run_k, 30)
+    k2 = cuda_time_ms(run_k, 30)
+    p2 = cuda_time_ms(run_p, 10)
+    qs = []
+    for p, g, _, _ in state:
+        q = p.clone().requires_grad_()
+        q.grad = g.clone()
+        qs.append(q)
+    lib = torch.optim.Adam(qs, lr=lr, fused=True)
+    numel = sum(p.numel() for p, _, _, _ in state)
+    return {"shape": [list(p.shape) for p, _, _, _ in state]
+            if len(state) > 1 else list(state[0][0].shape),
+            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "library_ms": cuda_time_ms(lib.step, 30),
+            "bound_ms": tm.bound_ms(ADAM_BYTES * numel, ADAM_FLOPS * numel)}
+
+
+def phase_train_times(dev, ctx: dict, tr) -> dict:
+    import torch
+    from importlib import import_module
+    adam = import_module(f"{PKG}.ops.adam")
     cfg = tr.cfg
     params = _params(ctx, dev)
     opt = adam.adam_init(params)
     gen = torch.Generator(device=dev).manual_seed(1)
     users, pos, neg, mask = tr.draw_epoch(gen)
     nb = users.shape[0]
-    batches = [(users[s], pos[s], neg[s], mask[s]) for s in range(nb)]
+    plans = tr.step_plans(users, pos, neg)
+    batches = [(users[s], pos[s], neg[s], mask[s], None, plans[s])
+               for s in range(nb)]
 
     # one step split into forward+loss, backward, Adam (CUDA events), over
     # an epoch's batches after two warm-up steps
@@ -909,38 +1128,32 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
                            ("bwd of user<-item (item-row shape, hub)",
                             tr.model.user_from_item.bwd))]
 
-    # the Adam kernel per table: plain, kernel, kernel, plain; then
-    # torch.optim.Adam(fused=True) on the same leaf as the yardstick
-    leaves = []
-    a, b = adam.adam_scalars(10, cfg.lr)
-    for name, p0 in params.items():
-        p = p0.clone()
-        g = torch.randn(p.shape, device=dev, generator=gen) * 1e-3
-        m = torch.zeros_like(p)
-        v = torch.zeros_like(p)
-        run_k = lambda: ac.KERNEL(p, g, m, v, a, b)          # noqa: E731
-        run_p = lambda: ac.fused_adam_reference(p, g, m, v, a, b)  # noqa
-        p1 = cuda_time_ms(run_p, 10)
-        k1 = cuda_time_ms(run_k, 30)
-        k2 = cuda_time_ms(run_k, 30)
-        p2 = cuda_time_ms(run_p, 10)
-        q = p0.clone().requires_grad_()
-        q.grad = g.clone()
-        lib = torch.optim.Adam([q], lr=cfg.lr, fused=True)
-        numel = p.numel()
-        leaves.append({
-            "leaf": name, "shape": list(p.shape), "ms": min(k1, k2),
-            "plain_ms": min(p1, p2), "library_ms": cuda_time_ms(lib.step, 30),
-            "bound_ms": tm.bound_ms(ADAM_BYTES * numel, ADAM_FLOPS * numel)})
+    # a step's two gather plans (step 0: its users, its positives and
+    # negatives)
+    gathers = [time_gather(role, p, idx, cfg.emb_dim, gen)
+               for role, p, idx in (
+                   ("stage_b users", plans[0][0], users[0]),
+                   ("stage_b items (hub)", plans[0][1],
+                    torch.cat([pos[0], neg[0]])))]
+
+    # the Adam kernel per table against its plain version,
+    # torch.optim.Adam(fused=True) and its bound
+    leaves = [dict(leaf=name, **time_adam(
+        {name: p0}, adam.adam_scalars(10, cfg.lr), cfg.lr, gen))
+        for name, p0 in params.items()]
 
     # where the device time of a step goes: a profiled window of 3 steps
     profile_out = profile_steps(
         lambda j: tr.train_step(params, opt, *batches[2 + j]))
+    if profile_out["indexing_backward_ms"]:
+        raise AssertionError(f"the Stage-B step ran ATen's indexing "
+                             f"backward: {profile_out['top_kernels_ms']}")
 
     # the cold start of a fresh process: the first call of
     # torch.use_deterministic_algorithms (which imports torch._inductor; the
-    # trainer sets ATen's switch instead), then the first and second
-    # deterministic row-gather backward (sorted index_put_) at a step's shapes
+    # trainer sets ATen's switch instead), then the first and second stock
+    # deterministic row-gather backward (sorted index_put_, which the step
+    # no longer runs) at a step's shapes
     code = ("import json, time, torch; d = torch.device('cuda', 0); "
             f"x = torch.randn({GRAPH['num_items']}, {cfg.emb_dim}, device=d, "
             "requires_grad=True); "
@@ -969,6 +1182,7 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
     if not np.isfinite(loss):
         raise AssertionError(f"epoch loss {loss}")
     out = {"step_ms": step_ms, "step_split_ms": split, "steps_per_epoch": nb,
+           "gather_backward": gathers,
            "epoch_draw_ms": 1e3 * (h1 - h0), "epoch_steps_ms": 1e3 * (h2 - h1),
            "epoch_ms": 1e3 * (h2 - h0), "profile": profile_out,
            "cold_start_ms": dict(zip(("use_deterministic_algorithms",
@@ -981,7 +1195,7 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
         f"Adam {split['adam']:.3f}); " + "; ".join(
             f"{e['role']} kernel {e['ms']:.4f} plain {e['plain_ms']:.4f} "
             f"sparse.mm {e['library_ms']:.4f} bound {e['bound_ms']:.4f}"
-            for e in bwd) + "; " + "; ".join(
+            for e in bwd) + "; " + _gather_line(gathers) + "; " + "; ".join(
             f"Adam {e['leaf']} {tuple(e['shape'])} kernel {e['ms']:.4f} plain "
             f"{e['plain_ms']:.4f} optim.Adam(fused) {e['library_ms']:.4f} "
             f"bound {e['bound_ms']:.4f}" for e in leaves)
@@ -992,9 +1206,10 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
         f"({100 * profile_out['busy_share']:.1f}%), by kernel "
         + ", ".join(f"{k} {v:.2f}"
                     for k, v in profile_out["top_kernels_ms"].items())
-        + f"; fresh process: first torch.use_deterministic_algorithms "
-        f"{cold[0]:.1f} ms, deterministic gather backward first {cold[1]:.1f} "
-        f"ms, second {cold[2]:.2f} ms")
+        + f"; no indexing_backward_kernel; fresh process: first "
+        f"torch.use_deterministic_algorithms {cold[0]:.1f} ms, stock "
+        f"deterministic gather backward first {cold[1]:.1f} ms, second "
+        f"{cold[2]:.2f} ms")
     return out
 
 
@@ -1171,9 +1386,10 @@ def phase_probes(dev, dirs) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernel_counters().items()}
-    # every SpMM and gather kernel runs here; the Adam kernel does not
+    # every SpMM and slab-gather kernel runs here; the Adam kernel and the
+    # training gathers' backward do not
     idle = [name for name, n in launches.items()
-            if (n == 0) != (name == "fused_adam")]
+            if (n == 0) != (name in ("fused_adam", "gather_backward"))]
     if idle:
         raise AssertionError(f"probe path launches {launches}: wrong for "
                              f"{idle}")
@@ -1215,6 +1431,7 @@ CRED_EPOCHS = 2               # of 100 (CredConfig.epochs)
 # head item's degree would size each (I, P) table beyond the card
 CRED_PAD_DEG = 128
 CRED_LEAVES = 10              # Adam launches a step: one per parameter leaf
+CRED_GATHERS = 5              # full-graph gather backwards a step
 CRED_ARTEFACTS = ("user_labels.csv", "user_features.csv", "graph_hetero.npz",
                   "credibility_scores_minmax.npy",
                   "credibility_scores_minmax_with_user_id.csv",
@@ -1276,7 +1493,29 @@ def phase_cred_slas(dev, tmp: Path, jsonl: Path) -> dict:
     cli = import_module(f"{PKG}.cli.main")
     hetero = import_module(f"{PKG}.graph.hetero")
     config = import_module(f"{PKG}.utils.config")
+    ingest = import_module(f"{PKG}.data.ingest")
+    native = import_module(f"{PKG}.data.native.ingest_native")
     out = tmp / "cred"
+    # the native reader's g++ build (once a checkout), then the native
+    # reader asked for by name (a failed build raises) and the Python
+    # reader on the same JSONL: equal tables
+    t0 = time.perf_counter()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    reads = {}
+    for backend in ("native", "python"):
+        t0 = time.perf_counter()
+        table = ingest.ingest_jsonl(jsonl, config.IngestConfig(
+            jsonl_path=str(jsonl), backend=backend))
+        reads[backend] = (time.perf_counter() - t0, table)
+    nat, py = reads["native"][1], reads["python"][1]
+    if nat.extra.get("backend") != "native" or nat.user_ids != py.user_ids \
+            or nat.item_ids != py.item_ids or not all(
+                np.array_equal(getattr(nat, c), getattr(py, c))
+                for c in ("uidx", "iidx", "rating", "split", "tok_count")):
+        raise AssertionError("the native and Python readers disagree")
+    ingest_s = {"native_build": build_s, **{k: v[0] for k, v in reads.items()}}
+    del reads, nat, py
     # ---- this path, counted (every kernel's count) ----
     reset_counts()
     t0 = time.perf_counter()
@@ -1302,15 +1541,19 @@ def phase_cred_slas(dev, tmp: Path, jsonl: Path) -> dict:
         f"{cfg.epochs} epochs, the candidate cap) on {CRED_REVIEWS['lines']:,}"
         f" review lines: {hg.num_users:,} users, {hg.num_items:,} items, "
         f"{hg.num_edges:,} edges, labelled {int((labels == 1).sum()):,} "
-        f"genuine / {int((labels == 0).sum()):,} fake; {nb} steps an epoch; "
-        f"wall {wall:.1f}s, epoch seconds "
+        f"genuine / {int((labels == 0).sum()):,} fake; native reader built "
+        f"in {build_s:.2f}s; ingest native {ingest_s['native']:.2f}s, python "
+        f"{ingest_s['python']:.2f}s (equal tables; train-cred's backend=auto "
+        f"takes native); {nb} steps an "
+        f"epoch; wall {wall:.1f}s, epoch seconds "
         f"{[round(h['seconds'], 2) for h in res.history]}, losses "
         f"{[round(h['loss'], 6) for h in res.history]}, holdout AUC "
         f"{res.history[-1]['holdout_auc']:.4f}; launches segment_spmm "
-        f"{counts['segment_spmm']}, fused_adam {counts['fused_adam']} = "
+        f"{counts['segment_spmm']}, gather_backward "
+        f"{counts['gather_backward']}, fused_adam {counts['fused_adam']} = "
         f"{CRED_LEAVES} x {nb} x {CRED_EPOCHS}; six artefacts written, "
         f"scores in [0, 1] with max 1")
-    return {"launches_by_kernel": counts, "wall_s": wall,
+    return {"launches_by_kernel": counts, "wall_s": wall, "ingest_s": ingest_s,
             "steps_per_epoch": nb, "history": res.history,
             "num_users": hg.num_users, "num_items": hg.num_items,
             "num_edges": hg.num_edges, "_hg": hg, "_out": out}
@@ -1337,9 +1580,11 @@ def phase_cred_full_graph(dev, hg) -> dict:
     t2 = time.perf_counter()
     nb = tr.steps_per_epoch
     # 4 SpMM a step forward (2 views x 2 operators) and 4 backward; 2 per
-    # holdout evaluation (the early view) and 2 for the final inference
+    # holdout evaluation (the early view) and 2 for the final inference;
+    # 5 gather backwards a step (3 seed-row gathers, 2 edge gathers)
     want_spmm = 8 * nb * CRED_EPOCHS + 2 * CRED_EPOCHS + 2
     counts = read_counts({"segment_spmm": want_spmm,
+                          "gather_backward": CRED_GATHERS * nb * CRED_EPOCHS,
                           "fused_adam": CRED_LEAVES * nb * CRED_EPOCHS},
                          "cred_full_graph path")
     _check_scores(res, hg.num_users, "full-graph fit")
@@ -1350,24 +1595,28 @@ def phase_cred_full_graph(dev, hg) -> dict:
     params0, _, _ = tr.init_state(seed=0)
     order = np.random.default_rng(0).permutation(tr.train_users)
     users, mask = tr.epoch_batches(None, order)
+    plans = tr.seed_plans(users)
     steps = [s % users.shape[0] for s in range(PARITY_STEPS)]
+    kernels = (sc.KERNEL, sc.GATHER_KERNEL, ac.KERNEL)
 
     def run(t):
         params = {k: v.clone() for k, v in params0.items()}
         opt = adam.adam_init(params)
-        losses = torch.stack([t.train_step(params, opt, users[s], mask[s])
+        losses = torch.stack([t.train_step(params, opt, users[s], mask[s],
+                                           seed_plan=plans[s])
                               for s in steps])
         torch.cuda.synchronize()
         return params, losses
 
-    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    before = [k.launches for k in kernels]
     pk, lk = run(tr)
-    got = (sc.KERNEL.launches - before[0], ac.KERNEL.launches - before[1])
-    if got != (8 * PARITY_STEPS, CRED_LEAVES * PARITY_STEPS):
+    got = tuple(k.launches - b for k, b in zip(kernels, before))
+    if got != (8 * PARITY_STEPS, CRED_GATHERS * PARITY_STEPS,
+               CRED_LEAVES * PARITY_STEPS):
         raise AssertionError(f"kernel path launched {got}")
-    before = (sc.KERNEL.launches, ac.KERNEL.launches)
+    before = [k.launches for k in kernels]
     pp, lp = run(tr_p)
-    if (sc.KERNEL.launches, ac.KERNEL.launches) != before:
+    if [k.launches for k in kernels] != before:
         raise AssertionError("the plain path launched a kernel")
     pk2, lk2 = run(tr)
     loss_err = float((lk - lp).abs().max())
@@ -1392,7 +1641,9 @@ def phase_cred_full_graph(dev, hg) -> dict:
         f"{[round(h['loss'], 6) for h in res.history]}, holdout AUC "
         f"{res.history[-1]['holdout_auc']:.4f}; launches segment_spmm "
         f"{counts['segment_spmm']} = 8 x {nb} x {CRED_EPOCHS} + 2 x "
-        f"{CRED_EPOCHS} + 2, fused_adam {counts['fused_adam']} = "
+        f"{CRED_EPOCHS} + 2, gather_backward {counts['gather_backward']} = "
+        f"{CRED_GATHERS} x {nb} x {CRED_EPOCHS}, fused_adam "
+        f"{counts['fused_adam']} = "
         f"{CRED_LEAVES} x {nb} x {CRED_EPOCHS}; {PARITY_STEPS} steps vs the "
         f"plain path: losses {[round(float(x), 7) for x in lk]} max diff "
         f"{loss_err:.3g} (tol {LOSS_ATOL:g}), params max abs diff "
@@ -1416,7 +1667,7 @@ def phase_two_stage(dev, tmp: Path, jsonl: Path, cred_dir: Path) -> dict:
     csv = cred_dir / "credibility_scores_minmax_with_user_id.csv"
     t0 = time.perf_counter()
     cli.run(["build-graph", "--jsonl", str(jsonl), "--out", str(tmp / "g"),
-             "--device", str(dev)])
+             "--device", str(dev), "backend=native"])
     t1 = time.perf_counter()
     graph = build.BipartiteGraph.load_npz(tmp / "g" / "graph.npz")
     # the vector train-rec loads: its trainer reads the CSV by user id
@@ -1438,8 +1689,8 @@ def phase_two_stage(dev, tmp: Path, jsonl: Path, cred_dir: Path) -> dict:
                for m in ("precision", "recall", "ndcg")]
     if not (np.isfinite(metrics).all() and np.isfinite(res.history[0].loss)):
         raise AssertionError(f"train-rec metrics {res.test_metrics}")
-    log(f"[phase 13] two-stage contract: build-graph on the same JSONL in "
-        f"{t1 - t0:.1f}s ({graph.summary()}); train-rec --preset cu_message "
+    log(f"[phase 13] two-stage contract: build-graph on the same JSONL "
+        f"(native reader) in {t1 - t0:.1f}s ({graph.summary()}); train-rec --preset cu_message "
         f"--cred <train-cred CSV> epochs=1 in {t3 - t2:.1f}s: {changed:,} of "
         f"{graph.num_users:,} graph users took a score from the CSV (min "
         f"{cred.min():.4f}, mean {cred.mean():.4f}), loss "
@@ -1457,14 +1708,17 @@ def _mode_times(tr) -> dict:
     params, opt, gen = tr.init_state(seed=1)
     users, mask = tr.epoch_batches(gen)
     nb = users.shape[0]
+    plans = tr.seed_plans(users) or [None] * nb
 
     def step(j):
-        tr.train_step(params, opt, users[j % nb], mask[j % nb], gen)
+        tr.train_step(params, opt, users[j % nb], mask[j % nb], gen,
+                      seed_plan=plans[j % nb])
 
     step(0)
     step(1)
     split = step_split(
-        lambda leaves, j: tr._loss(leaves, users[j % nb], mask[j % nb], gen),
+        lambda leaves, j: tr._loss(leaves, users[j % nb], mask[j % nb], gen,
+                                   seed_plan=plans[j % nb]),
         params, opt, tr.cfg.lr, min(10, nb))
     step_ms = cuda_time_ms(lambda: step(0), 10, warmup=2)
     torch.cuda.synchronize()
@@ -1486,9 +1740,14 @@ def phase_cred_times(dev, tmp: Path, jsonl: Path, hg, tr_full) -> dict:
     config = import_module(f"{PKG}.utils.config")
     cli = import_module(f"{PKG}.cli.main")
     sampling = import_module(f"{PKG}.ops.sampling")
+    adam = import_module(f"{PKG}.ops.adam")
     tr_slas = ct.CredTrainer(hg, config.CredConfig(slas_pad_deg=CRED_PAD_DEG),
                              device=dev, verbose=False)
     modes = {"slas": _mode_times(tr_slas), "full_graph": _mode_times(tr_full)}
+    if modes["full_graph"]["profile"]["indexing_backward_ms"]:
+        raise AssertionError(
+            f"the full-graph step ran ATen's indexing backward: "
+            f"{modes['full_graph']['profile']['top_kernels_ms']}")
 
     # train-cred through the CLI in full-graph mode (the SLAS wall is
     # phase 11's)
@@ -1511,6 +1770,15 @@ def phase_cred_times(dev, tmp: Path, jsonl: Path, hg, tr_full) -> dict:
                 ("bwd of item<-user (user rows)", view.item_from_user.bwd),
                 ("bwd of user<-item (item rows, hub)",
                  view.user_from_item.bwd))]
+    # the smoothness term's two gathers (the early view's plans)
+    p_src, p_dst = view.smooth_plans
+    gathers = [time_gather("stage_a h_u2[src]", p_src, view.src, D, gen),
+               time_gather("stage_a h_i1[dst] (hub)", p_dst, view.dst, D,
+                           gen)]
+    # the Adam kernel on the ten Stage-A leaves, as a step runs it
+    params, _, _ = tr_full.init_state(seed=3)
+    adam_leaves = time_adam(params, adam.adam_scalars(10, tr_full.cfg.lr),
+                            tr_full.cfg.lr, gen)
 
     # gumbel_topk at the user draw's shape: (B * k_item, P)
     cfg = tr_slas.cfg
@@ -1542,9 +1810,15 @@ def phase_cred_times(dev, tmp: Path, jsonl: Path, hg, tr_full) -> dict:
             f"{e['max_dst_degree']:,}, {e['long_rows']} long rows) kernel "
             f"{e['ms']:.4f} plain {e['plain_ms']:.4f} sparse.mm "
             f"{e['library_ms']:.4f} bound {e['bound_ms']:.4f}" for e in dirs)
+        + "; " + _gather_line(gathers)
+        + f"; Adam on the {len(params)} Stage-A leaves kernel "
+        f"{adam_leaves['ms']:.4f} plain {adam_leaves['plain_ms']:.4f} "
+        f"optim.Adam(fused) {adam_leaves['library_ms']:.4f} bound "
+        f"{adam_leaves['bound_ms']:.4f}"
         + f"; gumbel_topk {tuple(shape)} k={cfg.k_user_neigh} "
         f"{topk['ms']:.4f} (torch.topk {topk['torch_topk_ms']:.4f})")
-    return {"modes": modes, "spmm_directions": dirs, "gumbel_topk": topk}
+    return {"modes": modes, "spmm_directions": dirs, "gumbel_topk": topk,
+            "gather_backward": gathers, "adam_leaves": adam_leaves}
 
 
 def launches_by_path(paths: dict, name: str) -> dict:
@@ -1665,6 +1939,7 @@ def run(dev, out_path=None) -> int:
 
     worst = phase_kernel_vs_plain(dev, probe_dirs)
     worst_adam = phase_adam_vs_plain(dev)
+    gather_check = phase_gather_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
         res = phase_slice(dev, Path(tmp))
         ctx = res.pop("_ctx")
@@ -1703,6 +1978,7 @@ def run(dev, out_path=None) -> int:
 
     dirs = res["directions"]
     leaves = times["adam_leaves"]
+    cred_gathers = cred_times["gather_backward"]
     # every kernel's count, read after each counted path: serving (phase
     # 3), training (phase 6), the probes (phase 10), Stage A in SLAS mode
     # (phase 11) and in full-graph mode (phase 12)
@@ -1748,6 +2024,25 @@ def run(dev, out_path=None) -> int:
         "bound_by": "bytes",
         "library_ms": sum(e["library_ms"] for e in leaves),
         "leaves": leaves,
+        "cred_leaves": cred_times["adam_leaves"],
+    }, {
+        "name": "gather_backward",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/segment_spmm.cu",
+        "replaces": REPLACES_GATHER,
+        "launches": sum(paths[k]["gather_backward"] for k in main_paths),
+        "launches_by_path": launches_by_path(paths, "gather_backward"),
+        "max_abs_err": gather_check["max_abs_err"],
+        # one Stage-A full-graph step's smoothness pair, h_u2[src] and
+        # h_i1[dst]; the library call is index_add_ (atomic)
+        "ms": sum(e["ms"] for e in cred_gathers),
+        "plain_ms": sum(e["plain_ms"] for e in cred_gathers),
+        "bound_ms": sum(e["bound_ms"] for e in cred_gathers),
+        "bound_by": "bytes",
+        "library_ms": sum(e["library_ms"] for e in cred_gathers),
+        "index_put_ms": sum(e["index_put_ms"] for e in cred_gathers),
+        "cases": cred_gathers + times["gather_backward"],
+        "checked": gather_check["cases"],
     }]
     kernels += probe_kernel_entries(chunk, probes, paths)
     if out_path:
@@ -1755,6 +2050,7 @@ def run(dev, out_path=None) -> int:
         Path(out_path).write_text(json.dumps(
             {"nvidia_smi": smi, "torch": torch.__version__, "kernels": kernels,
              "phase2_worst": worst, "phase2b_worst": worst_adam,
+             "phase2c": gather_check,
              "ptxas": ptxas, "phase9": chunk, "probes": probes,
              "train": train, "train_parity": parity,
              "cred_slas": cred_slas, "cred_full_graph": cred_full,

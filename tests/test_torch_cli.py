@@ -272,6 +272,13 @@ def test_train_rec_mesh_not_supported(saved):
                    "--mesh", "all", "--device", "cpu"])
 
 
+def test_evaluate_mesh_not_supported(saved):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        t_cli.run(["evaluate", "--graph", str(saved / "graph.npz"),
+                   "--params", str(saved / "best_model.npz"),
+                   "--mesh", "all", "--device", "cpu"])
+
+
 def test_port_imports_without_jax():
     mods = sorted(
         PORT_PKG + "." + ".".join(p.relative_to(ROOT / PORT_PKG)
@@ -280,7 +287,8 @@ def test_port_imports_without_jax():
     mods = [m.removesuffix(".__init__") for m in mods]
     assert PORT_PKG + ".probes.window_kernel" in mods
     for m in ("data.features", "graph.hetero", "models.cred_model",
-              "models.cred_slas", "ops.slas", "train.cred_trainer"):
+              "models.cred_slas", "ops.slas", "train.cred_trainer",
+              "data.native.ingest_native", "ops.gather"):
         assert f"{PORT_PKG}.{m}" in mods, m
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['jaxlib'] = None; import importlib; "
