@@ -1,10 +1,11 @@
-"""Adam with optax's defaults, one fused kernel launch per parameter leaf.
+"""Adam with optax's defaults, one fused kernel launch over every leaf.
 
 The JAX package trains with ``optax.adam(lr)`` (``train/trainer.py:128``):
 b1 0.9, b2 0.999, eps 1e-8, eps_root 0, the step count starting at 0 and
-the first update using t = 1.  Here each leaf is updated in place by
-``ops/adam_cuda.fused_adam``, with the bias corrections folded into two fp32
-scalars as the probe kernel does (``scripts/probe_fused_adam.py:91-94``)::
+the first update using t = 1.  Here every leaf is updated in place by one
+call of ``ops/adam_cuda.fused_adam_leaves`` (one kernel launch a step), with
+the bias corrections folded into two fp32 scalars as the probe kernel does
+(``scripts/probe_fused_adam.py:91-94``)::
 
     a = lr / (1 - b1^t),   b = 1 / sqrt(1 - b2^t)
     p -= a * m / (sqrt(v) * b + eps)
@@ -21,7 +22,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .adam_cuda import B1, B2, fused_adam
+from .adam_cuda import B1, B2, fused_adam_leaves
 
 
 @dataclass
@@ -50,10 +51,10 @@ def adam_step(params: Dict[str, torch.Tensor],
               grads: Dict[str, torch.Tensor], state: AdamState, lr: float,
               backend: str = "auto") -> None:
     """One Adam update of every leaf, in place (params, ``state.m``,
-    ``state.v``); ``state.count`` goes up by one first."""
+    ``state.v``), in one call over the leaves in ``params`` order;
+    ``state.count`` goes up by one first."""
     state.count += 1
     a, b = adam_scalars(state.count, lr)
     with torch.no_grad():
-        for k, p in params.items():
-            fused_adam(p, grads[k].contiguous(), state.m[k], state.v[k], a, b,
-                       backend=backend)
+        fused_adam_leaves([(p, grads[k].contiguous(), state.m[k], state.v[k])
+                           for k, p in params.items()], a, b, backend=backend)

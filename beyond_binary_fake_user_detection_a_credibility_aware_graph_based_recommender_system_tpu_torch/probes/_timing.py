@@ -3,9 +3,11 @@
 On a CUDA device a time is taken with CUDA events around ``iters`` calls
 after ``warmup`` calls, best of ``reps``; on the CPU with the host clock.
 :func:`clock_name` says which, so a CPU time is never printed as a device
-time.  The bounds are the least time an H100 SXM could take for the same
-work: the compulsory bytes at its published memory rate, or the fp32
-operations at its rate outside the tensor cores, whichever is larger.
+time.  :func:`queued_device_ms` is the device time alone, with the calls
+queued ahead of the card (on the card only).  The bounds are the least time
+an H100 SXM could take for the same work: the compulsory bytes at its
+published memory rate, or the fp32 operations at its rate outside the
+tensor cores, whichever is larger.
 """
 
 from __future__ import annotations
@@ -47,6 +49,32 @@ def device_loop_time(fn: Callable[[], object], device: torch.device,
             ms = 1e3 * (time.perf_counter() - t0)
         best = min(best, ms / iters)
     return best
+
+
+SPIN_CYCLES = 20_000_000      # ~10 ms of the card: the host's head start
+
+
+def queued_device_ms(fn: Callable[[], object], device: torch.device,
+                     iters: int = 20):
+    """Device milliseconds per call of ``fn`` when the card never waits for
+    the host: a spin kernel (``torch.cuda._sleep``) holds the stream while
+    the host queues ``iters`` calls, and CUDA events time them back to
+    back.  A loop of CUDA events alone (:func:`device_loop_time`) also sees
+    the host's issue time when a call's kernels are shorter than it.
+    ``None`` (not measured) off the card."""
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(stop) / iters
 
 
 def bound_ms(nbytes: float, flops: float) -> float:

@@ -3,10 +3,13 @@
 Port of ``scripts/probe_vmem_gather.py``.  For each slab of S rows (D=64
 fp32) it gathers ``G * S`` rows (G=64 steps of S random rows each, as the
 JAX probe's grid does) with ``ops/row_gather.row_gather``, and prints the
-time per call, the time per row, the route and ``torch.index_select``'s
-time, then checks the result against numpy bit for bit.  Every S goes
-through the L2 route (the wrapper's); a slab that fits shared memory (up to
-192 KiB: S=512) also goes through the shared-memory route.
+time per call (CUDA events around a loop of calls: the host's issue
+included), the device time per call with the calls queued ahead of the
+card (``_timing.queued_device_ms``), the time per row, the route and
+``torch.index_select``'s times, then checks the result against numpy bit
+for bit.  Every S goes through the L2 route (the wrapper's); a
+slab that fits shared memory (up to 192 KiB: S <= 768) also goes through the
+shared-memory route in clusters of 1, 2, 4 and 8 CTAs.
 
     python -m <package>.probes.vmem_gather [--device cuda|cpu]
         [--sizes 512,2048,8192,16384 --steps 64 --dim 64 --iters 20]
@@ -20,17 +23,31 @@ import numpy as np
 import torch
 
 from ..ops.row_gather import row_gather
-from ..ops.row_gather_cuda import smem_fits
+from ..ops.row_gather_cuda import CLUSTERS, smem_fits
 from ..utils.device import resolve_device
-from ._timing import bound_ms, clock_name, device_loop_time
+from ._timing import (bound_ms, clock_name, device_loop_time,
+                      queued_device_ms)
 
 SIZES = (512, 2048, 8192, 16384)
 
 
+def variants(device: torch.device, S: int, dim: int) -> list:
+    """``(route, cluster)`` of every kernel variant the probe runs at S
+    (``("plain", 0)`` off the card)."""
+    if device.type != "cuda":
+        return [("plain", 0)]
+    return [("l2", 0)] + ([("smem", c) for c in CLUSTERS]
+                          if smem_fits(S, dim) else [])
+
+
+def _ms(value) -> str:
+    return "not measured" if value is None else f"{value:.4f}"
+
+
 def run(device, sizes, steps, dim, iters) -> dict:
     device = resolve_device(device)
-    print(f"vmem_gather probe on {device} (times: {clock_name(device)}), "
-          f"D={dim}, {steps} steps of S rows per call")
+    print(f"vmem_gather probe on {device} (times: {clock_name(device)}; "
+          f"device: queued calls), D={dim}, {steps} steps of S rows per call")
     rows = []
     for S in sizes:
         rng = np.random.default_rng(0)
@@ -40,24 +57,31 @@ def run(device, sizes, steps, dim, iters) -> dict:
         idx = torch.as_tensor(idx_np, device=device)
         n = idx_np.size
         lib = device_loop_time(lambda: x.index_select(0, idx), device, iters)
+        lib_dev = queued_device_ms(lambda: x.index_select(0, idx), device,
+                                   iters)
         plain = device_loop_time(lambda: row_gather(x, idx, backend="torch"),
                                  device, iters)
-        routes = ["plain"] if device.type != "cuda" else (
-            ["l2", "smem"] if smem_fits(S, dim) else ["l2"])
-        for route in routes:
+        bound = bound_ms(S * dim * 4 + n * 4 + n * dim * 4, 0)
+        for route, cluster in variants(device, S, dim):
             kw = {} if route == "plain" else {"route": route}
+            if cluster:
+                kw["cluster"] = cluster
             out = row_gather(x, idx, **kw)
             exact = bool(np.array_equal(out.cpu().numpy(), x_np[idx_np]))
             ms = device_loop_time(lambda: row_gather(x, idx, **kw), device,
                                   iters)
+            dev_ms = queued_device_ms(lambda: row_gather(x, idx, **kw),
+                                      device, iters)
             rows.append(dict(
-                S=S, rows=n, route=route, ms=ms, ns_per_row=1e6 * ms / n,
-                exact=exact, plain_ms=plain, library_ms=lib,
-                bound_ms=bound_ms(S * dim * 4 + n * 4 + n * dim * 4, 0)))
-            print(f"S={S:6d} route={route:<5}: {ms:8.4f} ms/call  "
-                  f"{1e6 * ms / n:7.4f} ns/row ({n} rows incl. out write)  "
-                  f"index_select {lib:8.4f} ms  bound "
-                  f"{rows[-1]['bound_ms']:.4f} ms  "
+                S=S, rows=n, route=route, cluster=cluster, ms=ms,
+                device_ms=dev_ms, ns_per_row=1e6 * ms / n, exact=exact,
+                plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                bound_ms=bound))
+            name = route + (f"/c{cluster}" if cluster else "")
+            print(f"S={S:6d} route={name:<8}: {ms:8.4f} ms/call (device "
+                  f"{_ms(dev_ms)})  {1e6 * ms / n:7.4f} ns/row ({n} rows "
+                  f"incl. out write)  index_select {lib:8.4f} ms (device "
+                  f"{_ms(lib_dev)})  bound {bound:.4f} ms  "
                   f"{'correct' if exact else 'WRONG'}")
     return {"device": str(device), "clock": clock_name(device), "rows": rows}
 

@@ -15,9 +15,13 @@ Phases (each prints one line; any failure exits non-zero):
      table, and both reference-scale directions; two launches must be
      bit-identical and every case bit-equal to the plain version's ordered
      CPU sums;
-  2b. the fused Adam kernel against its plain version on the card: leaves of
-     the two reference-scale tables, (1, 1), (1001, 3) and a misaligned
-     view, at t = 1 and t = 1000; two launches must be bit-identical;
+  2b. the fused Adam kernel against its plain version on the card: single
+     leaves of the two reference-scale tables, (1, 1), (1001, 3) and a
+     misaligned view, then lists in one launch (Stage A's ten leaves, both
+     reference-scale tables, Stage A's leaves with a misaligned leaf and
+     both tables) and a list of 70 leaves (three launches of at most 32), at
+     t = 1 and t = 1000; two launches must be bit-identical and every list
+     bit-equal to the plain version;
   2c. the row gathers' backward (``ops/gather.py``: the SpMM kernel as a
      unit-weight segment-sum, counted as ``gather_backward``) on the card:
      Stage A's hub shape (600,000 ids into 85,675 rows, one row of 60,954)
@@ -42,7 +46,7 @@ Phases (each prints one line; any failure exits non-zero):
   6. the training slice at full width: the CLI's train-rec with the
      cu_message preset (D=64, K=3, batch 4096: 15 steps per epoch) for 2
      epochs with checkpoints; the launch counters must show 12 SpMM, 10
-     gather-backward and 2 Adam launches per step plus 6 SpMM per
+     gather-backward and 1 Adam launch per step plus 6 SpMM per
      evaluation; the losses must be finite and evaluate on the written
      best_model.npz must reproduce test_metrics.json;
   7. 3 train steps from one set of parameters and batches through the
@@ -53,8 +57,10 @@ Phases (each prints one line; any failure exits non-zero):
      into forward+loss, backward and Adam; each backward SpMM direction;
      a step's two gather backwards against their bound, their plain
      version, index_add_ and the deterministic index_put_ they replace;
-     the Adam kernel per table against its plain version,
-     torch.optim.Adam(fused=True) and its bound; one epoch; a profiled
+     the Adam kernel per table and on both tables in one launch against its
+     plain version, torch.optim.Adam(fused=True) and its bound, with its
+     device time (the calls queued ahead of the card) and the host's time
+     of the wrapper and of adam_step; one epoch; a profiled
      window of 3 steps (device busy share, device time by kernel), which
      must show no indexing_backward_kernel;
   9. the chunked SpMM kernels (``csrc/chunk_spmm.cu``: full-block, window
@@ -64,22 +70,26 @@ Phases (each prints one line; any failure exits non-zero):
      and the reference graph in both directions; two launches bit-identical
      and bit-equal to the plain version's sequential CPU sum, pad and empty
      rows exact zeros, a K=3 padded chain; then the slab row gather
-     (``csrc/row_gather.cu``) at S in {512, 2048, 8192, 16384}, bit-exact
-     (S=512 through both routes);
+     (``csrc/row_gather.cu``) at S in {512, 768, 2048, 8192, 16384},
+     bit-exact, the L2 route at every S and the shared-memory route in
+     clusters of 1, 2, 4 and 8 CTAs at S <= 768, on an aligned slab
+     (multicast bulk copies) and a misaligned one (the threads' load);
  10. the three probes (``probes/window_kernel.py``, ``kernel_grid.py``,
      ``vmem_gather.py``) at reference scale, counted: every chunked and
-     gather kernel must launch there;
+     gather kernel must launch there; the gather's loop and device times
+     (calls queued ahead of the card) for every route, cluster size and S,
+     and ``index_select``'s;
  11. Stage A: a synthetic review JSONL at the two-stage scale of
      ``scripts/two_stage_demo.py`` (600,000 lines, 60,000 users, 250,000
      items), read by the native C++ reader (``backend="native"``: a failed
      build fails the run) and by the Python reader, timed, equal tables;
      then the CLI's train-cred in its default SLAS mode for 2 epochs with
-     slas_pad_deg=128: no SpMM and no gather-backward launch, 10 Adam
-     launches a step, finite epoch losses, the six artefacts, min-max
+     slas_pad_deg=128: no SpMM and no gather-backward launch, 1 Adam
+     launch a step, finite epoch losses, the six artefacts, min-max
      scores in [0, 1];
  12. full-graph mode on the same heterograph for 2 epochs: 8 SpMM and 5
      gather-backward launches a step plus 2 SpMM per holdout evaluation and
-     2 for the inference, 10 Adam launches a step; 3 steps against the
+     2 for the inference, 1 Adam launch a step; 3 steps against the
      plain path (parameters within rtol 1e-5 / atol 1e-6, losses within
      1e-6) and two kernel-path runs bit-identical;
  13. the two-stage contract: build-graph on the same JSONL with the native
@@ -91,13 +101,15 @@ Phases (each prints one line; any failure exits non-zero):
      SpMM in Stage A's directions against its bound and torch.sparse.mm,
      the smoothness term's two gather backwards against their bound, plain
      version, index_add_ and index_put_, the Adam kernel on the ten Stage-A
-     leaves against its plain version, torch.optim.Adam(fused=True) and its
-     bound, and gumbel_topk at the user draw's shape.
+     leaves (one launch) against its plain version,
+     torch.optim.Adam(fused=True) and its bound, with its device time, and
+     gumbel_topk at the user draw's shape.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
 3, 6, 10, 11 and 12) and read after it; a kernel that is not on that path
 must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
-exits non-zero without one.  The line before the last holds the kernels'
+exits non-zero without one.  A line before the card's name gives the
+command's seconds.  The line before the last holds the kernels'
 JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -534,7 +546,10 @@ def profile_split(fn, kinds, calls: int = 10) -> tuple:
     """Device ms and CUDA launches per call of ``fn`` by CUDA kernel (two
     dicts), from the profiler over ``calls`` calls after one warm-up;
     ``kinds`` maps a label to a kernel name fragment, tried in order (the
-    first match labels a kernel)."""
+    first match labels a kernel).  The profiler can drop a kernel's record
+    (one of ten was missing in a run on the H100), so a kernel's launches
+    per call are its record count over ``calls`` rounded to a whole number,
+    and its time per call is its mean record's time times that."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -546,12 +561,13 @@ def profile_split(fn, kinds, calls: int = 10) -> tuple:
         torch.cuda.synchronize()
     split, count = {}, {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.count:
             name = next((k for k, frag in kinds.items() if frag in e.key),
                         "other")
-            split[name] = (split.get(name, 0.0)
-                           + e.self_device_time_total / 1e3 / calls)
-            count[name] = count.get(name, 0) + e.count / calls
+            launches = round(e.count / calls)
+            split[name] = (split.get(name, 0.0) + e.self_device_time_total
+                           / 1e3 / e.count * launches)
+            count[name] = count.get(name, 0) + launches
     return split, count
 
 
@@ -770,54 +786,99 @@ def _ulps(a, b) -> int:
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
+def _adam_leaf(dev, gen, shape, t: int, misaligned: bool = False) -> tuple:
+    """A random (p, g, m, v) leaf of ``shape`` on ``dev`` with moments as
+    at step ``t`` (zero at t = 1); ``misaligned``: views one float off
+    16-byte alignment (the kernel's scalar body)."""
+    import torch
+    numel = int(np.prod(shape))
+    base = [torch.randn(numel + 1, device=dev, generator=gen)
+            for _ in range(4)]
+    p, g, m, v = ((x[1:] if misaligned else x[:numel]).view(shape)
+                  for x in base)
+    g.mul_(1e-2)
+    v.abs_().mul_(1e-4 if t > 1 else 0.0)
+    m.mul_(1e-2 if t > 1 else 0.0)
+    return p, g, m, v
+
+
+def _adam_check(ac, leaves, a, b, launches: int, tag: str, worst: dict,
+                max_ulp: int) -> None:
+    """One call of the kernel over ``leaves`` (in place) against a second
+    call on 16-byte aligned copies and the plain version: ``launches``
+    launches, bit-identical calls, within ``max_ulp`` of the plain version
+    (0: bit-equal)."""
+    import torch
+    ref = [tuple(x.clone() for x in leaf) for leaf in leaves]
+    k2 = [tuple(x.clone() for x in leaf) for leaf in leaves]
+    before = ac.KERNEL.launches
+    ac.KERNEL(leaves, a, b)
+    got = ac.KERNEL.launches - before
+    if got != launches:
+        raise AssertionError(f"{tag}: {got} launches, expected {launches}")
+    ac.KERNEL(k2, a, b)
+    ac.fused_adam_leaves_reference(ref, a, b)
+    torch.cuda.synchronize()
+    for j, (k1, kk, rr) in enumerate(zip(leaves, k2, ref)):
+        for name, i in (("p", 0), ("m", 2), ("v", 3)):
+            if not torch.equal(k1[i], kk[i]):
+                raise AssertionError(f"{tag} leaf {j}: two launches differ in "
+                                     f"{name}")
+            if not torch.isfinite(k1[i]).all():
+                raise AssertionError(f"{tag} leaf {j}: non-finite {name}")
+            err = float((k1[i] - rr[i]).abs().max())
+            ulp = _ulps(k1[i], rr[i])
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            worst["max_ulp"] = max(worst["max_ulp"], ulp)
+            if ulp > max_ulp:
+                raise AssertionError(f"{tag} leaf {j}: {name} differs from the "
+                                     f"plain version by {ulp} ulp")
+
+
 def phase_adam_vs_plain(dev) -> dict:
     import torch
     from importlib import import_module
     ac = import_module(f"{PKG}.ops.adam_cuda")
     adam = import_module(f"{PKG}.ops.adam")
+    cm = import_module(f"{PKG}.models.cred_model")
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(GRAPH["num_users"], 64), (GRAPH["num_items"], 64), (1, 1),
-              (1001, 3), (4099,)]
+    tables = [(GRAPH["num_users"], 64), (GRAPH["num_items"], 64)]
+    shapes = tables + [(1, 1), (1001, 3), (4099,)]
+    # Stage A's ten leaves: 7 user and 2 item features, hidden 64
+    stage_a = [tuple(p.shape) for p in cm.init_cred_params(
+        torch.Generator(device=dev).manual_seed(0), 7, 2, 64).values()]
     worst = {"max_abs_err": 0.0, "max_ulp": 0}
     n = 0
-    for shape in shapes:
-        for t in (1, 1000):
-            numel = int(np.prod(shape))
-            # the last shape is a 1-D view one float off 16-byte alignment
-            # (the kernel's scalar path)
-            base = [torch.randn(numel + 1, device=dev, generator=gen)
-                    for _ in range(4)]
-            p, g, m, v = (x[1:].view(shape) if len(shape) == 1 else
-                          x[:numel].view(shape) for x in base)
-            g.mul_(1e-2)
-            v.abs_().mul_(1e-4 if t > 1 else 0.0)
-            m.mul_(1e-2 if t > 1 else 0.0)
-            a, b = adam.adam_scalars(t, 1e-3)
-            ref = [x.clone() for x in (p, g, m, v)]
-            k2 = [x.clone() for x in (p, g, m, v)]      # 16-byte aligned
-            k1 = [p, g, m, v]          # in place; misaligned for the 1-D view
-            ac.fused_adam_reference(*ref, a, b)
-            ac.KERNEL(*k1, a, b)
-            ac.KERNEL(*k2, a, b)
-            torch.cuda.synchronize()
-            tag = f"adam {shape} t={t}"
-            for name, i in (("p", 0), ("m", 2), ("v", 3)):
-                if not torch.equal(k1[i], k2[i]):
-                    raise AssertionError(f"{tag}: two launches differ in "
-                                         f"{name}")
-                if not torch.isfinite(k1[i]).all():
-                    raise AssertionError(f"{tag}: non-finite {name}")
-                err = float((k1[i] - ref[i]).abs().max())
-                ulp = _ulps(k1[i], ref[i])
-                worst["max_abs_err"] = max(worst["max_abs_err"], err)
-                worst["max_ulp"] = max(worst["max_ulp"], ulp)
-                if ulp > 2:
-                    raise AssertionError(f"{tag}: {name} differs from the "
-                                         f"plain version by {ulp} ulp")
+    for t in (1, 1000):
+        a, b = adam.adam_scalars(t, 1e-3)
+        # one leaf a launch; the last shape is a 1-D view one float off
+        # 16-byte alignment (the kernel's scalar body)
+        for shape in shapes:
+            leaf = _adam_leaf(dev, gen, shape, t, misaligned=len(shape) == 1)
+            _adam_check(ac, [leaf], a, b, 1, f"adam {shape} t={t}", worst, 2)
             n += 1
-    log(f"[phase 2b] fused Adam kernel vs plain: {n} cases (shapes {shapes}, "
-        f"t 1/1000, the last a misaligned view) ok, bit-identical reruns; "
-        f"bit-identical to the plain version: {worst['max_ulp'] == 0} "
+        # lists in one launch, and a list longer than MAX_LEAVES
+        lists = {
+            "stage_a": [_adam_leaf(dev, gen, s, t) for s in stage_a],
+            "stage_b": [_adam_leaf(dev, gen, s, t) for s in tables],
+            "stage_a+misaligned+stage_b":
+                [_adam_leaf(dev, gen, s, t) for s in stage_a]
+                + [_adam_leaf(dev, gen, (1001, 3), t, misaligned=True)]
+                + [_adam_leaf(dev, gen, s, t) for s in tables],
+            "70 leaves": [_adam_leaf(dev, gen, (1 + i % 13, 5), t,
+                                     misaligned=i % 5 == 0)
+                          for i in range(70)]}
+        for name, leaves in lists.items():
+            launches = -(-len(leaves) // ac.MAX_LEAVES)
+            _adam_check(ac, leaves, a, b, launches,
+                        f"adam list {name} t={t}", worst, 0)
+            n += 1
+    log(f"[phase 2b] fused Adam kernel vs plain: {n} cases (single leaves "
+        f"{shapes}, the last a misaligned view; lists in one launch: Stage "
+        f"A's ten leaves, both tables, Stage A + a misaligned leaf + both "
+        f"tables; 70 leaves in {-(-70 // ac.MAX_LEAVES)} launches; t "
+        f"1/1000) ok, bit-identical reruns, every list bit-equal to the plain "
+        f"version; bit-identical to the plain version: {worst['max_ulp'] == 0} "
         f"(max {worst['max_ulp']} ulp, max abs err {worst['max_abs_err']:.3g})")
     return worst
 
@@ -848,12 +909,12 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
     wall = time.perf_counter() - t0
     # segment_spmm: 4K per step x nb steps x epochs + 2K per evaluation;
     # gather_backward: K+1 user and K+1 item gathers of the propagation and
-    # the two ego gathers a step; fused_adam: 2 per step; no other kernel is
-    # on this path
+    # the two ego gathers a step; fused_adam: 1 per step (both tables in one
+    # launch); no other kernel is on this path
     counts = read_counts(
         {"segment_spmm": 4 * K * nb * TRAIN_EPOCHS + 2 * K * n_evals,
          "gather_backward": (2 * K + 4) * nb * TRAIN_EPOCHS,
-         "fused_adam": 2 * nb * TRAIN_EPOCHS}, "training path")
+         "fused_adam": nb * TRAIN_EPOCHS}, "training path")
     spmm_n, adam_n = counts["segment_spmm"], counts["fused_adam"]
     gather_n = counts["gather_backward"]
 
@@ -885,7 +946,7 @@ def phase_train(dev, tmp: Path, ctx: dict) -> dict:
         f"{written['20']['recall']:.6f}; launches segment_spmm {spmm_n} = "
         f"{4 * K} x {nb} x {TRAIN_EPOCHS} + {2 * K} x {n_evals}, "
         f"gather_backward {gather_n} = {2 * K + 4} x {nb} x {TRAIN_EPOCHS}, "
-        f"fused_adam {adam_n} = 2 x {nb} x {TRAIN_EPOCHS}; evaluate on "
+        f"fused_adam {adam_n} = 1 x {nb} x {TRAIN_EPOCHS}; evaluate on "
         f"best_model.npz reproduces test_metrics.json (diff {err:.3g})")
     return {"launches": {"segment_spmm": spmm_n, "gather_backward": gather_n,
                          "fused_adam": adam_n},
@@ -934,7 +995,7 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
     pk, lk = run(tr_k)
     got = tuple(k.launches - b for k, b in zip(kernels, before))
     want = (4 * cfg.num_layers * PARITY_STEPS,
-            (2 * cfg.num_layers + 4) * PARITY_STEPS, 2 * PARITY_STEPS)
+            (2 * cfg.num_layers + 4) * PARITY_STEPS, PARITY_STEPS)
     if got != want:
         raise AssertionError(f"kernel path launched {got}, expected {want}")
     before = [k.launches for k in kernels]
@@ -980,6 +1041,7 @@ def step_split(loss_of, params, opt, lr: float, n: int) -> dict:
     adam = import_module(f"{PKG}.ops.adam")
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
           for _ in range(n)]
+    adam_host = 0.0               # host seconds inside adam_step
     for j, e in enumerate(ev):
         with trainer_mod.deterministic_algorithms():
             e[0].record()
@@ -989,11 +1051,14 @@ def step_split(loss_of, params, opt, lr: float, n: int) -> dict:
             e[1].record()
             grads = torch.autograd.grad(loss, list(leaves.values()))
             e[2].record()
+            h0 = time.perf_counter()
             adam.adam_step(params, dict(zip(leaves, grads)), opt, lr)
+            adam_host += time.perf_counter() - h0
             e[3].record()
     torch.cuda.synchronize()
-    return {name: sum(e[i].elapsed_time(e[i + 1]) for e in ev) / n
-            for i, name in enumerate(("forward_loss", "backward", "adam"))}
+    return {**{name: sum(e[i].elapsed_time(e[i + 1]) for e in ev) / n
+               for i, name in enumerate(("forward_loss", "backward", "adam"))},
+            "adam_host_ms": 1e3 * adam_host / n}
 
 
 def profile_steps(step, n: int = 3) -> dict:
@@ -1056,9 +1121,13 @@ def time_direction(role: str, d, x) -> dict:
 
 
 def time_adam(params: dict, ab: tuple, lr: float, gen) -> dict:
-    """The Adam kernel over ``params`` (one launch a leaf, as a step runs
-    it): plain, kernel, kernel, plain; ``torch.optim.Adam(fused=True)``
-    over the same leaves (one call) as the yardstick; the bound."""
+    """The Adam kernel over ``params`` in one call, as a step runs it (one
+    launch: plain, kernel, kernel, plain, CUDA events around a loop of
+    calls, the host's issue included), its device time per call (the calls
+    queued ahead of the card) and the host's microseconds a call of the
+    wrapper and of ``ops/adam.adam_step``; ``torch.optim.Adam(fused=True)``
+    over the same leaves (one call) as the yardstick, with its device time;
+    the bound."""
     import torch
     from importlib import import_module
     tm = import_module(f"{PKG}.probes._timing")
@@ -1070,15 +1139,27 @@ def time_adam(params: dict, ab: tuple, lr: float, gen) -> dict:
         state.append((p, torch.randn(p.shape, device=p.device,
                                      generator=gen) * 1e-3,
                       torch.zeros_like(p), torch.zeros_like(p)))
+    dev = state[0][0].device
 
     def run_k():
-        for t in state:
-            ac.KERNEL(*t, a, b)
+        ac.KERNEL(state, a, b)
 
     def run_p():
-        for t in state:
-            ac.fused_adam_reference(*t, a, b)
+        ac.fused_adam_leaves_reference(state, a, b)
 
+    before = ac.KERNEL.launches
+    run_k()
+    launches = ac.KERNEL.launches - before
+    # the host's side: the kernel's wrapper alone, and ops/adam.adam_step
+    # (the step's scalars, its leaf list, the wrapper) over the same leaves
+    adam = import_module(f"{PKG}.ops.adam")
+    names = [str(i) for i in range(len(state))]
+    opt = adam.AdamState(m={k: t[2] for k, t in zip(names, state)},
+                         v={k: t[3] for k, t in zip(names, state)})
+    host_us = {"kernel_call": host_us_per_call(run_k),
+               "adam_step": host_us_per_call(lambda: adam.adam_step(
+                   {k: t[0] for k, t in zip(names, state)},
+                   {k: t[1] for k, t in zip(names, state)}, opt, lr))}
     p1 = cuda_time_ms(run_p, 10)
     k1 = cuda_time_ms(run_k, 30)
     k2 = cuda_time_ms(run_k, 30)
@@ -1092,9 +1173,22 @@ def time_adam(params: dict, ab: tuple, lr: float, gen) -> dict:
     numel = sum(p.numel() for p, _, _, _ in state)
     return {"shape": [list(p.shape) for p, _, _, _ in state]
             if len(state) > 1 else list(state[0][0].shape),
+            "launches_per_call": launches, "host_us": host_us,
             "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "device_ms": tm.queued_device_ms(run_k, dev, 20),
             "library_ms": cuda_time_ms(lib.step, 30),
+            "library_device_ms": tm.queued_device_ms(lib.step, dev, 20),
             "bound_ms": tm.bound_ms(ADAM_BYTES * numel, ADAM_FLOPS * numel)}
+
+
+def _adam_line(tag: str, e: dict) -> str:
+    host = e["host_us"]
+    return (f"Adam {tag} kernel {e['ms']:.4f} ({e['launches_per_call']} "
+            f"launch, device {e['device_ms']:.4f}; host us a call: wrapper "
+            f"{host['kernel_call']:.1f}, adam_step {host['adam_step']:.1f}) "
+            f"plain {e['plain_ms']:.4f} optim.Adam(fused) "
+            f"{e['library_ms']:.4f} (device {e['library_device_ms']:.4f}) "
+            f"bound {e['bound_ms']:.4f}")
 
 
 def phase_train_times(dev, ctx: dict, tr) -> dict:
@@ -1136,11 +1230,13 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
                    ("stage_b items (hub)", plans[0][1],
                     torch.cat([pos[0], neg[0]])))]
 
-    # the Adam kernel per table against its plain version,
-    # torch.optim.Adam(fused=True) and its bound
-    leaves = [dict(leaf=name, **time_adam(
-        {name: p0}, adam.adam_scalars(10, cfg.lr), cfg.lr, gen))
-        for name, p0 in params.items()]
+    # the Adam kernel per table and on both tables in one launch (as a step
+    # runs it) against its plain version, torch.optim.Adam(fused=True) and
+    # its bound
+    ab = adam.adam_scalars(10, cfg.lr)
+    leaves = [dict(leaf=name, **time_adam({name: p0}, ab, cfg.lr, gen))
+              for name, p0 in params.items()]
+    adam_pair = dict(leaf="both tables", **time_adam(params, ab, cfg.lr, gen))
 
     # where the device time of a step goes: a profiled window of 3 steps
     profile_out = profile_steps(
@@ -1189,16 +1285,16 @@ def phase_train_times(dev, ctx: dict, tr) -> dict:
                                       "gather_backward_first",
                                       "gather_backward_second"), cold)),
            "backward_directions": bwd,
-           "adam_leaves": leaves}
+           "adam_leaves": leaves, "adam_pair": adam_pair}
     log("[phase 8] times (ms): train step " + f"{step_ms:.3f} (forward+loss "
         f"{split['forward_loss']:.3f}, backward {split['backward']:.3f}, "
-        f"Adam {split['adam']:.3f}); " + "; ".join(
+        f"Adam {split['adam']:.3f}, its host {split['adam_host_ms']:.3f}); "
+        + "; ".join(
             f"{e['role']} kernel {e['ms']:.4f} plain {e['plain_ms']:.4f} "
             f"sparse.mm {e['library_ms']:.4f} bound {e['bound_ms']:.4f}"
             for e in bwd) + "; " + _gather_line(gathers) + "; " + "; ".join(
-            f"Adam {e['leaf']} {tuple(e['shape'])} kernel {e['ms']:.4f} plain "
-            f"{e['plain_ms']:.4f} optim.Adam(fused) {e['library_ms']:.4f} "
-            f"bound {e['bound_ms']:.4f}" for e in leaves)
+            _adam_line(f"{e['leaf']} {tuple(e['shape'])}", e)
+            for e in leaves + [adam_pair])
         + f"; epoch {out['epoch_ms']:.1f} (draw {out['epoch_draw_ms']:.1f}, "
         f"{nb} steps {out['epoch_steps_ms']:.1f}); profiled 3 steps: device "
         f"busy {profile_out['device_ms']:.2f} of "
@@ -1226,7 +1322,8 @@ CHUNK_LAYOUTS = [("block", 512, 256, 0, "int32"), ("i16", 512, 256, 0, "int16"),
                  ("win_small", 64, 32, 16, "int32")]
 CHUNK_KERNEL = {"int32": "chunk_spmm_block", "int16": "chunk_spmm_i16",
                 "window": "chunk_spmm_window"}
-GATHER_SIZES = (512, 2048, 8192, 16384)
+GATHER_SIZES = (512, 2048, 8192, 16384)     # the JAX probe's slabs
+GATHER_SMEM_MAX = 768         # the largest slab of the shared-memory route
 GATHER_STEPS = 64
 
 
@@ -1277,6 +1374,7 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
     rg = import_module(f"{PKG}.ops.row_gather")
     rgc = import_module(f"{PKG}.ops.row_gather_cuda")
     wk = import_module(f"{PKG}.probes.window_kernel")
+    vg = import_module(f"{PKG}.probes.vmem_gather")
     rng = np.random.default_rng(0)
     worst = {k: 0.0 for k in CHUNK_KERNEL.values()}
     n = 0
@@ -1347,24 +1445,36 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
         f"chain: pad rows zero, max diff from the CSR chain {chain_err:.3g}")
 
     gather = {"max_abs_err": 0.0, "sizes": []}
-    for S in GATHER_SIZES:
-        x = torch.randn(S, 64, device=dev)
+    for S in (GATHER_SIZES[0], GATHER_SMEM_MAX) + GATHER_SIZES[1:]:
         idx = torch.randint(0, S, (GATHER_STEPS * S,), device=dev,
                             dtype=torch.int32)
-        ref = rg.row_gather_reference(x, idx)
-        routes = ["l2", "smem"] if rgc.smem_fits(S, 64) else ["l2"]
-        for route in routes:
-            o1 = rgc.KERNEL(x, idx, route)
-            o2 = rgc.KERNEL(x, idx, route)
-            torch.cuda.synchronize()
-            if not (torch.equal(o1, o2) and torch.equal(o1, ref)):
-                raise AssertionError(f"row_gather S={S} route={route}: not "
-                                     f"bit-exact")
-            gather["sizes"].append({"S": S, "route": route})
-    log(f"[phase 9] row_gather kernel vs plain: S {list(GATHER_SIZES)} x "
-        f"{GATHER_STEPS} steps, D=64, routes "
-        + ", ".join(f"S={e['S']} {e['route']}" for e in gather["sizes"])
-        + "; bit-exact, bit-identical reruns")
+        slabs = [torch.randn(S, 64, device=dev)]
+        if rgc.smem_fits(S, 64):
+            # one float off 16-byte alignment: no bulk copy, the threads load
+            slabs.append(torch.randn(S * 64 + 1, device=dev)[1:].view(S, 64))
+        for x in slabs:
+            ref = rg.row_gather_reference(x, idx)
+            for route, cluster in vg.variants(dev, S, 64):
+                kw = {"cluster": cluster} if cluster else {}
+                o1 = rgc.KERNEL(x, idx, route, **kw)
+                o2 = rgc.KERNEL(x, idx, route, **kw)
+                torch.cuda.synchronize()
+                tag = (f"S={S} {route}" + (f" cluster {cluster}" if cluster
+                                           else "")
+                       + ("" if x.data_ptr() % 16 == 0 else " misaligned"))
+                if not (torch.equal(o1, o2) and torch.equal(o1, ref)):
+                    raise AssertionError(f"row_gather {tag}: not bit-exact")
+                gather["sizes"].append({
+                    "S": S, "route": route, "cluster": cluster,
+                    "slab_load": rgc.smem_load(x) if route == "smem" else None,
+                    "aligned": x.data_ptr() % 16 == 0})
+    sizes = sorted({e["S"] for e in gather["sizes"]})
+    log(f"[phase 9] row_gather kernel vs plain: S {sizes} x {GATHER_STEPS} "
+        f"steps, D=64, {len(gather['sizes'])} cases: the L2 "
+        f"route at every S, the shared-memory route in clusters of "
+        f"{rgc.CLUSTERS} at S <= {GATHER_SMEM_MAX}, each on an aligned slab "
+        f"(multicast bulk copies) and a misaligned one (the threads' load); "
+        f"bit-exact, bit-identical reruns")
     return {"max_abs_err": worst, "cases": n, "padded_chain_max_diff": chain_err,
             "gather": gather}
 
@@ -1382,7 +1492,8 @@ def phase_probes(dev, dirs) -> dict:
     t0 = time.perf_counter()
     win = wk.run(dev, **size, iters=20, dirs=dirs)
     grid = kg.run(dev, **size, iters=10, dirs=dirs)
-    gather = vg.run(dev, GATHER_SIZES, GATHER_STEPS, 64, 20)
+    gather = vg.run(dev, (GATHER_SIZES[0], GATHER_SMEM_MAX)
+                    + GATHER_SIZES[1:], GATHER_STEPS, 64, 20)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernel_counters().items()}
@@ -1397,8 +1508,8 @@ def phase_probes(dev, dirs) -> dict:
             if not r["ok"]]
            + [f"{r['direction']} T={r['T']} W={r['W']}" for r in grid["grid"]
               if not r["ok"]]
-           + [f"gather S={r['S']} {r['route']}" for r in gather["rows"]
-              if not r["exact"]])
+           + [f"gather S={r['S']} {r['route']} c{r['cluster']}"
+              for r in gather["rows"] if not r["exact"]])
     if bad or not grid["chain_ok"]:
         raise AssertionError(f"probe results out of bound: {bad}, chain "
                              f"{grid['chain']}")
@@ -1430,7 +1541,7 @@ CRED_EPOCHS = 2               # of 100 (CredConfig.epochs)
 # the SLAS candidate cap of the JAX package's 10M run: uncapped, the zipf
 # head item's degree would size each (I, P) table beyond the card
 CRED_PAD_DEG = 128
-CRED_LEAVES = 10              # Adam launches a step: one per parameter leaf
+CRED_ADAM = 1                 # Adam launches a step: one over the ten leaves
 CRED_GATHERS = 5              # full-graph gather backwards a step
 CRED_ARTEFACTS = ("user_labels.csv", "user_features.csv", "graph_hetero.npz",
                   "credibility_scores_minmax.npy",
@@ -1527,8 +1638,8 @@ def phase_cred_slas(dev, tmp: Path, jsonl: Path) -> dict:
     hg = hetero.HeteroGraph.load_npz(out / "graph_hetero.npz")
     cfg = config.CredConfig()
     nb = cred_steps_per_epoch(hg, cfg.batch_size)
-    # no SpMM: SLAS builds no operator; one Adam launch per leaf a step
-    counts = read_counts({"fused_adam": CRED_LEAVES * nb * CRED_EPOCHS},
+    # no SpMM: SLAS builds no operator; one Adam launch a step
+    counts = read_counts({"fused_adam": CRED_ADAM * nb * CRED_EPOCHS},
                          "cred_slas path")
     missing = [a for a in CRED_ARTEFACTS if not (out / a).is_file()]
     if missing:
@@ -1551,7 +1662,7 @@ def phase_cred_slas(dev, tmp: Path, jsonl: Path) -> dict:
         f"{res.history[-1]['holdout_auc']:.4f}; launches segment_spmm "
         f"{counts['segment_spmm']}, gather_backward "
         f"{counts['gather_backward']}, fused_adam {counts['fused_adam']} = "
-        f"{CRED_LEAVES} x {nb} x {CRED_EPOCHS}; six artefacts written, "
+        f"{CRED_ADAM} x {nb} x {CRED_EPOCHS}; six artefacts written, "
         f"scores in [0, 1] with max 1")
     return {"launches_by_kernel": counts, "wall_s": wall, "ingest_s": ingest_s,
             "steps_per_epoch": nb, "history": res.history,
@@ -1585,7 +1696,7 @@ def phase_cred_full_graph(dev, hg) -> dict:
     want_spmm = 8 * nb * CRED_EPOCHS + 2 * CRED_EPOCHS + 2
     counts = read_counts({"segment_spmm": want_spmm,
                           "gather_backward": CRED_GATHERS * nb * CRED_EPOCHS,
-                          "fused_adam": CRED_LEAVES * nb * CRED_EPOCHS},
+                          "fused_adam": CRED_ADAM * nb * CRED_EPOCHS},
                          "cred_full_graph path")
     _check_scores(res, hg.num_users, "full-graph fit")
 
@@ -1612,7 +1723,7 @@ def phase_cred_full_graph(dev, hg) -> dict:
     pk, lk = run(tr)
     got = tuple(k.launches - b for k, b in zip(kernels, before))
     if got != (8 * PARITY_STEPS, CRED_GATHERS * PARITY_STEPS,
-               CRED_LEAVES * PARITY_STEPS):
+               CRED_ADAM * PARITY_STEPS):
         raise AssertionError(f"kernel path launched {got}")
     before = [k.launches for k in kernels]
     pp, lp = run(tr_p)
@@ -1644,7 +1755,7 @@ def phase_cred_full_graph(dev, hg) -> dict:
         f"{CRED_EPOCHS} + 2, gather_backward {counts['gather_backward']} = "
         f"{CRED_GATHERS} x {nb} x {CRED_EPOCHS}, fused_adam "
         f"{counts['fused_adam']} = "
-        f"{CRED_LEAVES} x {nb} x {CRED_EPOCHS}; {PARITY_STEPS} steps vs the "
+        f"{CRED_ADAM} x {nb} x {CRED_EPOCHS}; {PARITY_STEPS} steps vs the "
         f"plain path: losses {[round(float(x), 7) for x in lk]} max diff "
         f"{loss_err:.3g} (tol {LOSS_ATOL:g}), params max abs diff "
         f"{p_err:.3g} (tol {TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|ref|); two "
@@ -1775,7 +1886,8 @@ def phase_cred_times(dev, tmp: Path, jsonl: Path, hg, tr_full) -> dict:
     gathers = [time_gather("stage_a h_u2[src]", p_src, view.src, D, gen),
                time_gather("stage_a h_i1[dst] (hub)", p_dst, view.dst, D,
                            gen)]
-    # the Adam kernel on the ten Stage-A leaves, as a step runs it
+    # the Adam kernel on the ten Stage-A leaves in one launch, as a step
+    # runs it
     params, _, _ = tr_full.init_state(seed=3)
     adam_leaves = time_adam(params, adam.adam_scalars(10, tr_full.cfg.lr),
                             tr_full.cfg.lr, gen)
@@ -1796,7 +1908,9 @@ def phase_cred_times(dev, tmp: Path, jsonl: Path, hg, tr_full) -> dict:
         f"{m} step {t['step_ms']:.3f} (forward+loss "
         f"{t['step_split_ms']['forward_loss']:.3f}, backward "
         f"{t['step_split_ms']['backward']:.3f}, Adam "
-        f"{t['step_split_ms']['adam']:.3f}), epoch {t['epoch_ms']:.1f} "
+        f"{t['step_split_ms']['adam']:.3f}, its host "
+        f"{t['step_split_ms']['adam_host_ms']:.3f}), epoch "
+        f"{t['epoch_ms']:.1f} "
         f"({t['steps_per_epoch']} steps), profiled 3 steps: device busy "
         f"{t['profile']['device_ms']:.2f} of {t['profile']['window_ms']:.2f} "
         f"ms ({100 * t['profile']['busy_share']:.1f}%), by kernel "
@@ -1811,10 +1925,8 @@ def phase_cred_times(dev, tmp: Path, jsonl: Path, hg, tr_full) -> dict:
             f"{e['ms']:.4f} plain {e['plain_ms']:.4f} sparse.mm "
             f"{e['library_ms']:.4f} bound {e['bound_ms']:.4f}" for e in dirs)
         + "; " + _gather_line(gathers)
-        + f"; Adam on the {len(params)} Stage-A leaves kernel "
-        f"{adam_leaves['ms']:.4f} plain {adam_leaves['plain_ms']:.4f} "
-        f"optim.Adam(fused) {adam_leaves['library_ms']:.4f} bound "
-        f"{adam_leaves['bound_ms']:.4f}"
+        + "; " + _adam_line(f"on the {len(params)} Stage-A leaves",
+                            adam_leaves)
         + f"; gumbel_topk {tuple(shape)} k={cfg.k_user_neigh} "
         f"{topk['ms']:.4f} (torch.topk {topk['torch_topk_ms']:.4f})")
     return {"modes": modes, "spmm_directions": dirs, "gumbel_topk": topk,
@@ -1860,17 +1972,22 @@ def probe_kernel_entries(chunk: dict, probes: dict, paths: dict) -> list:
                                                "bound_ms", "library_ms",
                                                "pad_pct", "chunks")}
                             for r in rows]}))
-    # the wrapper's route (L2); the shared-memory route is the probe's
-    # second variant at S=512 and stays in "sizes"
-    g_rows = [r for r in probes["vmem_gather"]["rows"] if r["route"] == "l2"]
+    # the wrapper's route (L2) at the JAX probe's slabs; the shared-memory
+    # route in each cluster size, and S = 768, stay in "sizes"
+    g_all = probes["vmem_gather"]["rows"]
+    g_rows = [r for r in g_all if r["route"] == "l2" and r["S"] in GATHER_SIZES]
     kernels.append(_probe_entry(
         g_rows, "row_gather", "row_gather.cu", REPLACES_P4, paths,
         chunk["gather"]["max_abs_err"],
         {"shape": f"one call per slab size S in {list(GATHER_SIZES)}, "
                   f"{GATHER_STEPS} * S rows, D=64, L2 route",
-         "sizes": [{k: r[k] for k in ("S", "route", "ms", "ns_per_row",
-                                      "plain_ms", "bound_ms", "library_ms")}
-                   for r in probes["vmem_gather"]["rows"]]}))
+         "device_ms": sum(r["device_ms"] for r in g_rows),
+         "library_device_ms": sum(r["library_device_ms"] for r in g_rows),
+         "sizes": [{k: r[k] for k in ("S", "route", "cluster", "ms",
+                                      "device_ms", "ns_per_row", "plain_ms",
+                                      "bound_ms", "library_ms",
+                                      "library_device_ms")}
+                   for r in g_all]}))
     return kernels
 
 
@@ -1926,6 +2043,7 @@ def build_kernels() -> tuple:
 def run(dev, out_path=None) -> int:
     """Every phase on ``dev``; prints the kernels' line and the last line."""
     import torch
+    t_start = time.perf_counter()
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from importlib import import_module
@@ -1977,7 +2095,7 @@ def run(dev, out_path=None) -> int:
         f"{k}: {v:.1f}" for k, v in seconds.items()))
 
     dirs = res["directions"]
-    leaves = times["adam_leaves"]
+    pair = times["adam_pair"]
     cred_gathers = cred_times["gather_backward"]
     # every kernel's count, read after each counted path: serving (phase
     # 3), training (phase 6), the probes (phase 10), Stage A in SLAS mode
@@ -2017,13 +2135,11 @@ def run(dev, out_path=None) -> int:
         "launches": sum(paths[k]["fused_adam"] for k in main_paths),
         "launches_by_path": launches_by_path(paths, "fused_adam"),
         "max_abs_err": worst_adam["max_abs_err"],
-        # one train step: both tables
-        "ms": sum(e["ms"] for e in leaves),
-        "plain_ms": sum(e["plain_ms"] for e in leaves),
-        "bound_ms": sum(e["bound_ms"] for e in leaves),
+        # one Stage-B train step: both tables in one launch
+        **{k: pair[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                "device_ms", "library_device_ms")},
         "bound_by": "bytes",
-        "library_ms": sum(e["library_ms"] for e in leaves),
-        "leaves": leaves,
+        "leaves": times["adam_leaves"],
         "cred_leaves": cred_times["adam_leaves"],
     }, {
         "name": "gather_backward",
@@ -2058,9 +2174,10 @@ def run(dev, out_path=None) -> int:
              "cred_phase_seconds": seconds,
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
-                                          "adam_leaves")},
+                                          "adam_leaves", "adam_pair")},
              **{k: v for k, v in res.items() if k != "directions"}},
             indent=1, default=float))
+    log(f"[total] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
