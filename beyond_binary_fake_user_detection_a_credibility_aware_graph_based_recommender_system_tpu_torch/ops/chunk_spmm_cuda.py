@@ -1,7 +1,7 @@
 """The edge-chunked SpMM kernels: build, bind, launch.
 
-``csrc/chunk_spmm.cu`` holds one kernel in three instantiations, each with
-its own C entry and launch counter:
+``csrc/chunk_spmm.cu`` holds two designs, each entry with its own launch
+counter:
 
 * :data:`KERNEL_BLOCK` (``chunk_spmm_block``): full-block chunks, int32
   local ids; replaces the Pallas probe kernel P3 (``apply_nopad_trunc``,
@@ -9,9 +9,16 @@ its own C entry and launch counter:
 * :data:`KERNEL_WINDOW` (``chunk_spmm_window``): window chunks at
   ``win_start``; replaces P1 (``apply_window``,
   ``scripts/probe_window_kernel.py:127``);
+
+  both one launch of ``chunk_staged_kernel`` per application: a persistent
+  grid, each chunk's source rows staged in shared memory, and a row that
+  runs across chunks summed from its parts in the same launch by the CTA
+  that brings the last part (an integer counter per such row, from the
+  plan's ``chunk_meta()``; no float atomics);
 * :data:`KERNEL_I16` (``chunk_spmm_i16``): full-block chunks reading int16
   local ids; replaces P2 (``apply_i16``,
-  ``scripts/probe_window_kernel.py:182``).
+  ``scripts/probe_window_kernel.py:182``) with the first design, a chunk
+  kernel and a carry kernel (two launches an application).
 
 Each returns the raw ``(num_blocks*R, D)`` fp32 block space of a
 :class:`~.segment_plan.SegmentPlan`.  The plain version and the wrappers
@@ -28,22 +35,37 @@ from .cuda_build import CSRC, CudaKernel
 from .segment_plan import SegmentPlan
 
 SOURCE = CSRC / "chunk_spmm.cu"
-MAX_D = 256          # the widest row the kernel's register tile holds
+MAX_D = 256          # the widest row the kernels take
 MAX_T = 1024         # the most chunk edges one CTA's run masks cover
 
 
-class ChunkSpmmKernel(CudaKernel):
-    """One instantiation of the chunked kernel and its launch counter."""
+def x_load(x: torch.Tensor) -> str:
+    """How the staged kernel copies source rows of ``x`` into shared
+    memory: ``"vec"`` (16-byte copies, which need ``x`` 16-byte aligned and
+    D a multiple of 4) or ``"scalar"`` (4-byte copies, any table)."""
+    aligned = x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0
+    return "vec" if aligned else "scalar"
 
-    def __init__(self, symbol: str, window: bool, lid_dtype: torch.dtype):
-        ints = [ctypes.c_int] * (5 if window else 4)
-        super().__init__(SOURCE, symbol,
-                         [ctypes.c_void_p] * (10 if window else 9) + ints
-                         + [ctypes.c_void_p])
+
+class ChunkSpmmKernel(CudaKernel):
+    """One entry of the chunked kernels and its launch counter: the staged
+    design (``staged=True``: P1, P3) or the first one (P2)."""
+
+    def __init__(self, symbol: str, window: bool, lid_dtype: torch.dtype,
+                 staged: bool):
+        if staged:
+            argtypes = ([ctypes.c_void_p] * 8
+                        + [ctypes.c_int] * (7 if window else 6)
+                        + [ctypes.c_void_p])
+        else:
+            argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
+        super().__init__(SOURCE, symbol, argtypes)
         self.window = window
         self.lid_dtype = lid_dtype
+        self.staged = staged
 
-    def __call__(self, plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
+    def _check(self, plan: SegmentPlan, x: torch.Tensor) -> None:
         dev = x.device
         if dev.type != "cuda":
             raise ValueError(f"{self.symbol} kernel needs CUDA tensors, "
@@ -60,34 +82,42 @@ class ChunkSpmmKernel(CudaKernel):
         if x.shape[0] < plan.num_src:
             raise ValueError(f"x has {x.shape[0]} rows, the plan reads "
                              f"{plan.num_src}")
-        D = x.shape[1]
-        if not 0 < D <= MAX_D:
-            raise ValueError(f"row width D={D} outside 1..{MAX_D}")
-        R, T, G = plan.block_rows, plan.chunk_edges, plan.num_chunks
-        if not 0 < T <= MAX_T:
-            raise ValueError(f"chunk_edges T={T} outside 1..{MAX_T}")
-        if plan.num_blocks * R >= 2 ** 31:
+        if not 0 < x.shape[1] <= MAX_D:
+            raise ValueError(f"row width D={x.shape[1]} outside 1..{MAX_D}")
+        if not 0 < plan.chunk_edges <= MAX_T:
+            raise ValueError(f"chunk_edges T={plan.chunk_edges} outside "
+                             f"1..{MAX_T}")
+        if plan.num_blocks * plan.block_rows >= 2 ** 31:
             raise ValueError("block space too large for int32 row ids")
+
+    def __call__(self, plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
+        self._check(plan, x)
+        dev = x.device
+        D = x.shape[1]
+        R, T, G = plan.block_rows, plan.chunk_edges, plan.num_chunks
         lid = plan.local_ids_as(self.lid_dtype)
         y = torch.empty(plan.num_blocks * R, D, dtype=torch.float32,
                         device=dev)
         carry_val = torch.empty(2 * G, D, dtype=torch.float32, device=dev)
-        carry_row = torch.empty(2 * G, dtype=torch.int32, device=dev)
-        ptrs = [plan.src_padded.data_ptr(), plan.w_padded.data_ptr(),
-                lid.data_ptr(), plan.block_id.data_ptr(),
-                plan.first_chunk.data_ptr()]
-        ints = [G, T, R]
-        if self.window:
-            ptrs.append(plan.win_start.data_ptr())
-            ints.append(plan.window)
-        with torch.cuda.device(dev):
-            self._launch(*ptrs, x.data_ptr(), y.data_ptr(),
-                         carry_val.data_ptr(), carry_row.data_ptr(), *ints,
-                         D, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if not self.staged:
+            carry_row = torch.empty(2 * G, dtype=torch.int32, device=dev)
+            self._launch(plan.src_padded.data_ptr(), plan.w_padded.data_ptr(),
+                         lid.data_ptr(), plan.block_id.data_ptr(),
+                         plan.first_chunk.data_ptr(), x.data_ptr(),
+                         y.data_ptr(), carry_val.data_ptr(),
+                         carry_row.data_ptr(), G, T, R, D, dev.index, stream)
+            return y
+        counter = torch.empty(G, dtype=torch.int32, device=dev)
+        ints = [G, T, R] + ([plan.window] if self.window else [])
+        self._launch(plan.src_padded.data_ptr(), plan.w_padded.data_ptr(),
+                     lid.data_ptr(), plan.chunk_meta().data_ptr(), x.data_ptr(),
+                     y.data_ptr(), carry_val.data_ptr(), counter.data_ptr(),
+                     *ints, D, int(x_load(x) == "vec"), dev.index, stream)
         return y
 
 
-KERNEL_BLOCK = ChunkSpmmKernel("chunk_spmm_block", False, torch.int32)
-KERNEL_WINDOW = ChunkSpmmKernel("chunk_spmm_window", True, torch.int32)
-KERNEL_I16 = ChunkSpmmKernel("chunk_spmm_i16", False, torch.int16)
+KERNEL_BLOCK = ChunkSpmmKernel("chunk_spmm_block", False, torch.int32, True)
+KERNEL_WINDOW = ChunkSpmmKernel("chunk_spmm_window", True, torch.int32, True)
+KERNEL_I16 = ChunkSpmmKernel("chunk_spmm_i16", False, torch.int16, False)
 KERNELS = (KERNEL_BLOCK, KERNEL_WINDOW, KERNEL_I16)

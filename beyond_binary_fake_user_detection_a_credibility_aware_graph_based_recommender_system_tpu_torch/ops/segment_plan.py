@@ -44,7 +44,7 @@ class SegmentPlan:
     block_rows: int
     chunk_edges: int
     window: int                   # 0 = full-block chunks; else W
-    _lids: dict = field(default_factory=dict, repr=False, compare=False)
+    _cache: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_chunks(self) -> int:
@@ -67,9 +67,79 @@ class SegmentPlan:
         limit = self.window or self.block_rows
         if limit > np.iinfo(np.int16).max:
             raise ValueError(f"int16 local ids need R <= 32767, got {limit}")
-        if dtype not in self._lids:
-            self._lids[dtype] = self.local_ids.to(dtype)
-        return self._lids[dtype]
+        if dtype not in self._cache:
+            self._cache[dtype] = self.local_ids.to(dtype)
+        return self._cache[dtype]
+
+    def block_chunk_offsets(self) -> torch.Tensor:
+        """``(num_blocks + 1,)`` int32: block ``b``'s chunks are
+        ``[off[b], off[b + 1])``.  Built once, on the plan's device."""
+        if "block_off" not in self._cache:
+            counts = torch.bincount(self.block_id, minlength=self.num_blocks)
+            off = torch.zeros(self.num_blocks + 1, dtype=torch.int32,
+                              device=self.device)
+            off[1:] = torch.cumsum(counts, 0)
+            self._cache["block_off"] = off
+        return self._cache["block_off"]
+
+    def chunk_meta(self) -> torch.Tensor:
+        """``(G, 8)`` int32, one row a chunk, for the staged kernel.
+
+        A row that runs across a chunk boundary is summed in parts: its
+        *span* is the chunks ``c_a .. c_b`` whose runs hold it (the last run
+        of ``c_a``, then the first run of each later one), and its part in
+        each is added in chunk order.  Per chunk: its block ``b``; the
+        block-space row its local ids count from (``b*R + win_start``); the
+        row that ends the rows it writes (the next chunk's first row, or
+        its block's end when it is the block's last); ``first | last << 1
+        | cont_in << 2 | opens << 3`` (its first run continues a span; its
+        last run opens one); the first chunk and the length of the span its
+        first run continues (else -1, 0); the length of the span it opens
+        (else 0).  Built once, on the plan's device."""
+        if "meta" not in self._cache:
+            self._cache["meta"] = self._chunk_meta()
+        return self._cache["meta"]
+
+    def _chunk_meta(self) -> torch.Tensor:
+        G, T, R = self.num_chunks, self.chunk_edges, self.block_rows
+        dev = self.device
+        idx = torch.arange(G, device=dev)
+        b = self.block_id.long()
+        off = self.block_chunk_offsets().long()
+        blk_lo = b * R
+        ws = self.win_start.long() if self.window else torch.zeros_like(b)
+        base = blk_lo + ws
+        first = self.first_chunk.bool()
+        last = idx + 1 == off[b + 1]
+        lid = self.local_ids.view(G, T).long()
+        n = (lid < (self.window or R)).sum(1)       # real edges: a prefix
+        head = base + lid[:, 0]
+        tail = base + lid.gather(1, (n - 1).clamp(min=0)[:, None])[:, 0]
+        hi = torch.where(last, blk_lo + R,
+                         blk_lo + torch.roll(ws, -1) + torch.roll(lid[:, 0], -1))
+        one_run = (n > 0) & (head == tail)
+        cont_out = ~last & (tail == torch.roll(head, -1))
+        cont_in = torch.zeros_like(first)
+        cont_in[1:] = cont_out[:-1]
+        opens = cont_out & ~(one_run & cont_in)
+        # a span closes at the first chunk after its opener that is not a
+        # one-run chunk passing the row on
+        middle = one_run & cont_in & cont_out
+        stop = torch.where(middle, G, idx)
+        close = torch.flip(torch.cummin(torch.flip(stop, [0]), 0).values, [0])
+        close_next = torch.roll(close, -1)
+        open_len = torch.where(opens, close_next - idx + 1, 0)
+        opener = torch.where(opens, idx, -1)
+        prev_open = torch.cummax(opener, 0).values
+        span_start = torch.full_like(idx, -1)
+        span_start[1:] = prev_open[:-1]
+        span_start = torch.where(cont_in, span_start, -1)
+        span_len = torch.where(cont_in, open_len[span_start.clamp(min=0)], 0)
+        flags = (first.long() | (last.long() << 1) | (cont_in.long() << 2)
+                 | (opens.long() << 3))
+        return torch.stack([b, base, hi, flags, span_start, span_len,
+                            open_len, torch.zeros_like(b)],
+                           1).to(torch.int32).contiguous()
 
     def arrays(self) -> dict:
         """The plan's arrays as numpy, under the JAX plan's field names."""

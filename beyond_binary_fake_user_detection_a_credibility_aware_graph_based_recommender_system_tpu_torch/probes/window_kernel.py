@@ -11,8 +11,9 @@ direction:
 * ``i16``: the same plan reading int16 local ids (P2, ``chunk_spmm_i16``);
 * ``win W``: window chunks, W in {64, 128, 256} (P1, ``chunk_spmm_window``).
 
-Each line has the time per application, the plan's padding, the largest
-difference from the CSR kernel and whether every row lies within the fp32
+Each line has the time per application (a loop of CUDA events, and on the
+card the device time of calls queued ahead of it), the plan's padding, the
+largest difference from the CSR kernel and whether every row lies within the fp32
 summation bound (1e-6 + 1e-5 * sum_e |w_e * x_src(e)|), the bound, the
 plain version's time and ``torch.sparse.mm``'s on the same operator.
 
@@ -33,7 +34,8 @@ from ..ops.segment_plan import build_segment_plan
 from ..ops.spmm import CsrDirection
 from ..ops.spmm_cuda import segment_spmm, segment_spmm_reference
 from ..utils.device import resolve_device
-from ._timing import clock_name, csr_bound_ms, device_loop_time, plan_bound_ms
+from ._timing import (clock_name, csr_bound_ms, device_loop_time, plan_bound_ms,
+                      queued_device_ms)
 
 RTOL, ATOL = 1e-5, 1e-6
 WINDOWS = (64, 128, 256)
@@ -119,11 +121,12 @@ def run(device, users, items, edges_per_user, dim, iters,
         ref = Reference(d)
         E = c.src.numel()
         lib = library_ms(d, device, iters)
+        def csr():
+            return segment_spmm(c.indptr, c.src, c.w, x, pieces=c.pieces)
         rows.append(dict(
             direction=name, variant="csr", kernel="segment_spmm",
-            ms=device_loop_time(lambda: segment_spmm(c.indptr, c.src, c.w, x,
-                                                     pieces=c.pieces),
-                                device, iters),
+            ms=device_loop_time(csr, device, iters),
+            device_ms=queued_device_ms(csr, device, iters),
             pad_pct=0.0, max_err=0.0, ok=True, bound_ms=csr_bound_ms(c, dim),
             plain_ms=device_loop_time(lambda: segment_spmm_reference(
                 c.indptr, c.src, c.w, x), device, 3, reps=1),
@@ -138,10 +141,13 @@ def run(device, users, items, edges_per_user, dim, iters,
                      for W in WINDOWS]
         for variant, kernel, plan, lid in variants:
             err, ok = ref.check(apply_chunked(plan, x, lid))
+
+            def apply():
+                return chunk_spmm_blocks(plan, x, lid)
             rows.append(dict(
                 direction=name, variant=variant, kernel=kernel,
-                ms=device_loop_time(lambda: chunk_spmm_blocks(plan, x, lid),
-                                    device, iters),
+                ms=device_loop_time(apply, device, iters),
+                device_ms=queued_device_ms(apply, device, iters),
                 pad_pct=100.0 * (plan.padded_edges / max(E, 1) - 1),
                 max_err=err, ok=ok,
                 bound_ms=plan_bound_ms(plan, dim,
@@ -151,7 +157,9 @@ def run(device, users, items, edges_per_user, dim, iters,
                 library_ms=lib, edges=E, chunks=plan.num_chunks,
                 padded_edges=plan.padded_edges))
         for r in rows[-len(variants) - 1:]:
-            print(f"{name} {r['variant']:<17}: {r['ms']:8.4f} ms  "
+            dev_ms = ("" if r["device_ms"] is None
+                      else f" (device {r['device_ms']:.4f})")
+            print(f"{name} {r['variant']:<17}: {r['ms']:8.4f} ms{dev_ms}  "
                   f"pad=+{r['pad_pct']:.0f}%  maxerr={r['max_err']:.2e} "
                   f"{'ok' if r['ok'] else 'FAIL'}  bound {r['bound_ms']:.4f}"
                   f"  plain {r['plain_ms']:.4f}  sparse.mm "

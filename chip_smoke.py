@@ -63,12 +63,15 @@ Phases (each prints one line; any failure exits non-zero):
      of the wrapper and of adam_step; one epoch; a profiled
      window of 3 steps (device busy share, device time by kernel), which
      must show no indexing_backward_kernel;
-  9. the chunked SpMM kernels (``csrc/chunk_spmm.cu``: full-block, window
-     and int16-id chunks) against their plain version on the card: the
-     phase-2 graphs plus a source row 0 of inf (pad edges must be skipped),
-     windows W in {64, 128, 256}, small blocks with many chunk boundaries,
-     and the reference graph in both directions; two launches bit-identical
-     and bit-equal to the plain version's sequential CPU sum, pad and empty
+  9. the chunked SpMM kernels (``csrc/chunk_spmm.cu``: P3 full-block and
+     P1 window chunks through the staged kernel, one launch an apply; P2
+     int16-id chunks through its first design) against their plain version
+     on the card: the phase-2 graphs, a source row 0 of inf (pad edges must
+     be skipped) and a hub block of more than 80 chunks, on 11 layouts
+     (T 30, 32, 256 and 1024; windows W in {16, 64, 128, 256}) at D 8, 64
+     and 128, and D=63, D=256 and a misaligned table on three graphs, and
+     the reference graph in both directions; two launches bit-identical and
+     bit-equal to the plain version's sequential CPU sum, pad and empty
      rows exact zeros, a K=3 padded chain; then the slab row gather
      (``csrc/row_gather.cu``) at S in {512, 768, 2048, 8192, 16384},
      bit-exact, the L2 route at every S and the shared-memory route in
@@ -76,9 +79,13 @@ Phases (each prints one line; any failure exits non-zero):
      (multicast bulk copies) and a misaligned one (the threads' load);
  10. the three probes (``probes/window_kernel.py``, ``kernel_grid.py``,
      ``vmem_gather.py``) at reference scale, counted: every chunked and
-     gather kernel must launch there; the gather's loop and device times
-     (calls queued ahead of the card) for every route, cluster size and S,
-     and ``index_select``'s;
+     gather kernel must launch there; P1's and P3's device time (calls
+     queued ahead of the card) and loop time in both directions beside
+     their bound, ``torch.sparse.mm`` and the CSR kernel; each chunked
+     kernel's CUDA launches an apply from the profiler (P1 and P3 one
+     ``chunk_staged_kernel`` and no ``carry_kernel``, P2 its two kernels);
+     the gather's loop and device times for every route, cluster size and
+     S, and ``index_select``'s;
  11. Stage A: a synthetic review JSONL at the two-stage scale of
      ``scripts/two_stage_demo.py`` (600,000 lines, 60,000 users, 250,000
      items), read by the native C++ reader (``backend="native"``: a failed
@@ -1319,7 +1326,19 @@ CHUNK_LAYOUTS = [("block", 512, 256, 0, "int32"), ("i16", 512, 256, 0, "int16"),
                  ("win128", 512, 256, 128, "int32"),
                  ("win256", 512, 256, 256, "int32"),
                  ("block_small", 64, 32, 0, "int32"),
-                 ("win_small", 64, 32, 16, "int32")]
+                 ("win_small", 64, 32, 16, "int32"),
+                 ("block_t1024", 512, 1024, 0, "int32"),
+                 ("win_t1024", 512, 1024, 64, "int32"),
+                 # T not a multiple of 4: the plan is loaded by the threads
+                 ("block_t30", 64, 30, 0, "int32"),
+                 ("win_t30", 64, 30, 16, "int32")]
+# the widths and tables beyond the D 8/64/128 sweep: D=63 and a table one
+# float off 16-byte alignment take the staged kernel's 4-byte copies, D=256
+# its four column tiles; on these graphs and layouts
+CHUNK_WIDE_GRAPHS = ("zipf_hub", "inf_row0", "hub_block")
+CHUNK_WIDE_LAYOUTS = ("block", "i16", "win64", "block_small", "win_small",
+                      "block_t1024")
+CHUNK_HUB_CHUNKS = 80         # the hub block must span more chunks than this
 CHUNK_KERNEL = {"int32": "chunk_spmm_block", "int16": "chunk_spmm_i16",
                 "window": "chunk_spmm_window"}
 GATHER_SIZES = (512, 2048, 8192, 16384)     # the JAX probe's slabs
@@ -1339,7 +1358,7 @@ def _chunk_check(cs, plan, x, lid, tag, worst) -> None:
     y2 = cs.chunk_spmm_blocks(plan, x, lid)
     ref = cs.chunk_spmm_reference(plan, x)
     mag = cs.chunk_spmm_reference(
-        dataclasses.replace(plan, w_padded=plan.w_padded.abs(), _lids={}),
+        dataclasses.replace(plan, w_padded=plan.w_padded.abs(), _cache={}),
         x.abs())
     torch.cuda.synchronize()
     if not torch.equal(y1, y2):
@@ -1357,7 +1376,7 @@ def _chunk_check(cs, plan, x, lid, tag, worst) -> None:
     name = CHUNK_KERNEL["window" if plan.window else
                         ("int16" if lid == torch.int16 else "int32")]
     worst[name] = max(worst[name], float(diff.max()) if diff.numel() else 0.0)
-    cpu = dataclasses.replace(plan, _lids={}, **{
+    cpu = dataclasses.replace(plan, _cache={}, **{
         f: (None if getattr(plan, f) is None else getattr(plan, f).cpu())
         for f in ("src_padded", "w_padded", "local_ids", "block_id",
                   "first_chunk", "win_start")})
@@ -1382,6 +1401,15 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
     E = 30_000
     cases["inf_row0"] = (rng.integers(1, 5_000, E), rng.integers(0, 3_000, E),
                          rng.normal(size=E), 5_000, 3_000)
+    # one row holding 3/4 of 40,000 edges: its block spans 117 chunks of 256
+    # (938 of 32), so its carries are summed over many slot tiles
+    E = 40_000
+    cases["hub_block"] = (rng.integers(0, 5_000, E),
+                          np.where(rng.random(E) < 0.75, 700,
+                                   rng.integers(0, 2_000, E)),
+                          rng.normal(size=E), 5_000, 2_000)
+    hub_chunks = 0
+    wide = 0
     for name, (src, dst, w, ns, nd) in cases.items():
         o = np.argsort(dst, kind="stable")
         src, dst, w = (np.asarray(src, np.int32)[o], np.asarray(dst, np.int64)[o],
@@ -1390,13 +1418,27 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
             plan = sp.build_segment_plan(src, dst, w, nd, block_rows=R,
                                          chunk_edges=T, num_src=ns, window=W,
                                          device=dev)
-            for D in (8, 64, 128):
-                x = torch.randn(ns, D, device=dev)
+            if name == "hub_block" and label == "block":
+                hub_chunks = int(torch.bincount(plan.block_id).max())
+                if hub_chunks <= CHUNK_HUB_CHUNKS:
+                    raise AssertionError(f"hub block spans {hub_chunks} "
+                                         f"chunks, not > {CHUNK_HUB_CHUNKS}")
+            widths = [(D, True) for D in (8, 64, 128)]
+            if name in CHUNK_WIDE_GRAPHS and label in CHUNK_WIDE_LAYOUTS:
+                widths += [(63, True), (256, True), (64, False)]
+            for D, aligned in widths:
+                if aligned:
+                    x = torch.randn(ns, D, device=dev)
+                else:   # one float off 16-byte alignment
+                    x = torch.randn(ns * D + 1, device=dev)[1:].view(ns, D)
                 if name == "inf_row0":
                     x[0] = float("inf")
                 _chunk_check(cs, plan, x, getattr(torch, lid),
-                             f"{name} {label} D={D}", worst)
+                             f"{name} {label} D={D}"
+                             + ("" if aligned else " misaligned"), worst)
                 n += 1
+                wide += (D, aligned) not in ((8, True), (64, True),
+                                             (128, True))
     # the reference graph, both directions, and a K=3 padded chain
     for name, d in dirs.items():
         for label, R, T, W, lid in CHUNK_LAYOUTS[:5]:
@@ -1435,8 +1477,12 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
                     f"by {float((got - want).abs().max())}")
     chain_err = max(float((lay_u.from_padded(u) - cu).abs().max()),
                     float((lay_i.from_padded(i) - ci).abs().max()))
-    log(f"[phase 9] chunked kernels vs plain: {n} cases ok (6 graphs x "
-        f"{len(CHUNK_LAYOUTS)} layouts x D 8/64/128, the reference graph x 5 "
+    log(f"[phase 9] chunked kernels vs plain: {n} cases ok "
+        f"({len(cases)} graphs x {len(CHUNK_LAYOUTS)} layouts (T 30/32/256/1024) "
+        f"x D 8/64/128; {wide} cases at D 63/256 and a misaligned D=64 table "
+        f"on {'/'.join(CHUNK_WIDE_GRAPHS)} x "
+        f"{'/'.join(CHUNK_WIDE_LAYOUTS)}; a hub block of {hub_chunks} "
+        f"chunks; the reference graph x 5 "
         f"layouts x 2 directions), bit-identical reruns, inf in source row 0 "
         f"never read, untouched and pad rows zero; max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
@@ -1475,7 +1521,8 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
         f"{rgc.CLUSTERS} at S <= {GATHER_SMEM_MAX}, each on an aligned slab "
         f"(multicast bulk copies) and a misaligned one (the threads' load); "
         f"bit-exact, bit-identical reruns")
-    return {"max_abs_err": worst, "cases": n, "padded_chain_max_diff": chain_err,
+    return {"max_abs_err": worst, "cases": n, "wide_cases": wide,
+            "hub_block_chunks": hub_chunks, "padded_chain_max_diff": chain_err,
             "gather": gather}
 
 
@@ -1513,21 +1560,57 @@ def phase_probes(dev, dirs) -> dict:
     if bad or not grid["chain_ok"]:
         raise AssertionError(f"probe results out of bound: {bad}, chain "
                              f"{grid['chain']}")
-    # the chunked item<-user apply split by kernel: chunk pass, carry pass
+    # CUDA launches and device ms per apply by CUDA kernel (profiler): P1
+    # and P3 one chunk_staged_kernel and no carry pass, P2 its chunk and
+    # carry kernels
     cs = import_module(f"{PKG}.ops.chunk_spmm")
-    iu = dirs["items<-users"]
-    plan = wk.plan_for(iu, dev)
-    split, _ = profile_split(lambda: cs.chunk_spmm_blocks(plan, iu["x"]),
-                             {"carry": "carry_kernel", "chunk": "chunk_kernel"})
+    kinds = {"staged": "chunk_staged_kernel", "carry": "carry_kernel",
+             "chunk": "chunk_kernel"}
+    want = {"chunk_spmm_block": {"staged": 1}, "chunk_spmm_window": {"staged": 1},
+            "chunk_spmm_i16": {"chunk": 1, "carry": 1}}
+    by_kernel = {}
+    for dname, d in dirs.items():
+        base, win64 = wk.plan_for(d, dev), wk.plan_for(d, dev, window=64)
+        for name, plan, lid in (("chunk_spmm_block", base, torch.int32),
+                                ("chunk_spmm_window", win64, torch.int32),
+                                ("chunk_spmm_i16", base, torch.int16)):
+            # the profiler may drop most of a window's records (once in
+            # four runs on the H100): a window is taken again, up to three
+            for _ in range(3):
+                split, count = profile_split(
+                    lambda: cs.chunk_spmm_blocks(plan, d["x"], lid), kinds)
+                kernels = {k: v for k, v in count.items() if k in kinds}
+                if kernels == want[name]:
+                    break
+            else:
+                raise AssertionError(f"{name} {dname}: CUDA launches per "
+                                     f"apply {count}, expected {want[name]}")
+            by_kernel.setdefault(name, []).append(
+                {"direction": dname, "device_ms_by_kernel": split,
+                 "cuda_launches": count})
+    rows = {(r["direction"], r["variant"]): r for r in win["rows"]}
+
+    def line(variant):
+        return "; ".join(
+            f"{dn} {rows[(dn, variant)]['device_ms']:.4f} dev / "
+            f"{rows[(dn, variant)]['ms']:.4f} loop (bound "
+            f"{rows[(dn, variant)]['bound_ms']:.4f})" for dn in dirs)
     log(f"[phase 10] probes at reference scale in {wall:.1f}s: launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items())
         + "; every variant within the fp32 bound of the CSR kernel, chain "
-        "sums agree, gathers bit-exact; item<-user R=512 T=256 by kernel "
-        "(ms per apply, profiler): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        "sums agree, gathers bit-exact")
+    log("[phase 10] ms per apply, D=64: P3 base R=512 T=256: "
+        + line("base R=512 T=256") + "; P1 win W=64: " + line("win W=64")
+        + "; K1/K2 csr: " + line("csr") + "; torch.sparse.mm: "
+        + ", ".join(f"{dn} {rows[(dn, 'csr')]['library_ms']:.4f}"
+                    for dn in dirs))
+    log("[phase 10] CUDA launches per apply (profiler): " + "; ".join(
+        f"{name} {e['direction']} " + ", ".join(
+            f"{k} {v}" for k, v in e["cuda_launches"].items())
+        for name, es in by_kernel.items() for e in es))
     return {"window_kernel": win, "kernel_grid": grid, "vmem_gather": gather,
             "launches": launches, "wall_s": wall,
-            "item_from_user_split_ms": split}
+            "cuda_launches_by_kernel": by_kernel}
 
 
 # --------------------------------------------------------------------------
@@ -1968,9 +2051,12 @@ def probe_kernel_entries(chunk: dict, probes: dict, paths: dict) -> list:
         kernels.append(_probe_entry(
             rows, name, "chunk_spmm.cu", replaces, paths, err[name],
             {"shape": f"{variant}, one application per direction, D=64",
-             "directions": [{k: r[k] for k in ("direction", "ms", "plain_ms",
-                                               "bound_ms", "library_ms",
-                                               "pad_pct", "chunks")}
+             "device_ms": sum(r["device_ms"] for r in rows),
+             "cuda_launches_per_apply": probes["cuda_launches_by_kernel"][name],
+             "directions": [{k: r[k] for k in ("direction", "ms", "device_ms",
+                                               "plain_ms", "bound_ms",
+                                               "library_ms", "pad_pct",
+                                               "chunks")}
                             for r in rows]}))
     # the wrapper's route (L2) at the JAX probe's slabs; the shared-memory
     # route in each cluster size, and S = 768, stay in "sizes"
