@@ -32,7 +32,8 @@
 // that the plain version (ops/chunk_spmm.py) and its tests hold the kernel
 // to bit for bit.
 //
-// P1 and P3: chunk_staged_kernel, one template (WINDOW), one launch per
+// All three entries run chunk_staged_kernel, one template (WINDOW, and TL
+// the local-id type: int32_t, or int16_t for P2), one launch per
 // application.
 //   * A persistent grid (the SMs times the CTAs that fit on one: three at
 //     T = 256) walks items, (chunk g = blockIdx.x + k*gridDim.x, column tile
@@ -41,8 +42,13 @@
 //     next (local ids, source ids, weights, its meta row) arrives by
 //     cp.async.bulk on an mbarrier into a second stage, so neither the
 //     gather nor the plan load waits in line, and the CTA's launch and
-//     set-up are paid once (a T that is not a multiple of 4 has its plan
-//     loaded by the threads).
+//     set-up are paid once.  A bulk copy moves whole 16-byte words, so a
+//     T whose ids do not fill them (T % 4 for int32 ids, T % 8 for int16
+//     ones) has its plan loaded by the threads.
+//   * P2's int16 ids only shrink a chunk's plan by 2*T bytes (about 1% of
+//     the traffic at item<-user): on the TPU they also narrowed the one-hot
+//     compare, which has no counterpart here.  In the stage the ids come
+//     first, padded to 16 bytes, so what follows them stays aligned.
 //   * The chunk's dst-sorted edges are split into row runs (ballot and a
 //     prefix count in shared memory).
 //   * Its real source rows x[src[e]] are staged in shared memory by all 256
@@ -76,9 +82,6 @@
 //     multiplied by their zero weight: b*R + ws + lid would alias them into
 //     a real row, and 0 * inf is NaN.  The chunk's pad edges must form its
 //     tail (the planner's layout).
-//
-// P2 keeps the first design below: chunk_kernel (one CTA a chunk, one warp a
-// run, up to 8 source rows in flight) and a second launch, carry_kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,10 +98,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxT = 1024;            // chunk edges one CTA's masks cover
 constexpr unsigned kFull = 0xffffffffu;
 
-// ---------------------------------------------------------------------------
-// P1 and P3: the staged persistent kernel
-// ---------------------------------------------------------------------------
-
 constexpr int kBufFloats = 8192;       // one buffer of staged rows: 32 KB
 constexpr int kMaxDevices = 64;
 constexpr int kMeta = 8;               // ints of a chunk's meta row
@@ -114,14 +113,22 @@ inline int column_tile(int T, int D) {
   return d4 < cw ? d4 : cw;
 }
 
+// A chunk's plan stage in shared memory: its T local ids of tl bytes each,
+// padded to 16 bytes, then T source ids, T weights and its meta row; a
+// stage is a multiple of 16 bytes, so the second one is aligned too.
+__host__ __device__ constexpr int lid_bytes(int T, int tl) { return (T * tl + 15) & ~15; }
+__host__ __device__ constexpr int stage_bytes(int T, int tl) {
+  return (lid_bytes(T, tl) + 8 * T + kMeta * 4 + 15) & ~15;
+}
+
 // dynamic shared memory: two buffers of staged rows (T x CW each), two plan
-// stages (T local ids, T source ids, T weights, a meta row), the run starts
-inline size_t staged_smem_bytes(int T, int CW) {
-  return 2 * (size_t)T * CW * 4 + 2 * (3 * (size_t)T + kMeta) * 4 + ((size_t)T + 1) * 4;
+// stages, the run starts
+inline size_t staged_smem_bytes(int T, int CW, int tl) {
+  return 2 * (size_t)T * CW * 4 + 2 * (size_t)stage_bytes(T, tl) + ((size_t)T + 1) * 4;
 }
 constexpr size_t kMaxBufFloats = kBufFloats > 8 * kMaxT ? kBufFloats : 8 * kMaxT;
 constexpr size_t kMaxStagedSmem =
-    2 * kMaxBufFloats * 4 + 2 * (3 * (size_t)kMaxT + kMeta) * 4 + (kMaxT + 1) * 4;
+    2 * kMaxBufFloats * 4 + 2 * (size_t)stage_bytes(kMaxT, 4) + (kMaxT + 1) * 4;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -166,48 +173,69 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// The per-chunk arrays the kernel reads, and a chunk's plan stage in
-// shared memory: local ids, source ids, weights (T each) and its meta row
-// (ops/segment_plan.py chunk_meta: block, first block-space row of its
-// window, the row that ends its rows, first | last << 1 | cont_in << 2 |
-// opens << 3, the first chunk and length of the span its first run
-// continues, the length of the span its last run opens, 0).
+// The per-chunk arrays the kernel reads: source ids, weights, local ids
+// (TL) and the meta rows (ops/segment_plan.py chunk_meta: block, first
+// block-space row of its window, the row that ends its rows, first | last
+// << 1 | cont_in << 2 | opens << 3, the first chunk and length of the span
+// its first run continues, the length of the span its last run opens, 0).
+template <typename TL>
 struct Plan {
   const int32_t* src;
   const float* w;
-  const int32_t* lid;
+  const TL* lid;
   const int32_t* meta;
 };
 
-__device__ __forceinline__ int32_t* stage_at(int32_t* s_plan, int st, int T) {
-  return s_plan + st * (3 * T + kMeta);
+// one plan stage, laid out as lid_bytes / stage_bytes say
+template <typename TL>
+struct Stage {
+  unsigned char* p;
+  int lb;  // lid_bytes(T, sizeof(TL))
+  int T;
+  __device__ __forceinline__ TL* lid() const { return reinterpret_cast<TL*>(p); }
+  __device__ __forceinline__ int32_t* src() const { return reinterpret_cast<int32_t*>(p + lb); }
+  __device__ __forceinline__ float* w() const { return reinterpret_cast<float*>(p + lb + 4 * T); }
+  __device__ __forceinline__ int32_t* meta() const {
+    return reinterpret_cast<int32_t*>(p + lb + 8 * T);
+  }
+};
+
+template <typename TL>
+__device__ __forceinline__ Stage<TL> stage_at(unsigned char* s_plan, int st, int T) {
+  return {s_plan + st * stage_bytes(T, sizeof(TL)), lid_bytes(T, sizeof(TL)), T};
 }
 
 // chunk g's plan into a stage: one thread issues bulk copies on the
-// stage's mbarrier (bulk), or all threads load it (then a barrier)
-__device__ __forceinline__ void load_plan(bool bulk, uint32_t bar, int32_t* stage, const Plan& p,
-                                          int64_t g, int T) {
+// stage's mbarrier (bulk: then T * sizeof(TL) is a multiple of 16 and the
+// ids fill their part of the stage), or all threads load it (then a
+// barrier)
+template <typename TL>
+__device__ __forceinline__ void load_plan(bool bulk, uint32_t bar, const Stage<TL>& st,
+                                          const Plan<TL>& p, int64_t g, int T) {
   if (bulk) {
     if (threadIdx.x == 0) {
       const uint32_t bytes = (uint32_t)T * 4;
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                   "r"(3 * bytes + kMeta * 4)
+                   "r"(st.lb + 2 * bytes + kMeta * 4)
                    : "memory");
-      const uint32_t dst = smem_addr(stage);
-      bulk_copy(dst, p.lid + g * T, bytes, bar);
-      bulk_copy(dst + bytes, p.src + g * T, bytes, bar);
-      bulk_copy(dst + 2 * bytes, p.w + g * T, bytes, bar);
-      bulk_copy(dst + 3 * bytes, p.meta + g * kMeta, kMeta * 4, bar);
+      const uint32_t dst = smem_addr(st.p);
+      bulk_copy(dst, p.lid + g * T, st.lb, bar);
+      bulk_copy(dst + st.lb, p.src + g * T, bytes, bar);
+      bulk_copy(dst + st.lb + bytes, p.w + g * T, bytes, bar);
+      bulk_copy(dst + st.lb + 2 * bytes, p.meta + g * kMeta, kMeta * 4, bar);
     }
     return;
   }
+  TL* lid = st.lid();
+  int32_t* src = st.src();
+  int32_t* w = reinterpret_cast<int32_t*>(st.w());
   for (int e = threadIdx.x; e < T; e += kThreads) {
-    stage[e] = p.lid[g * T + e];
-    stage[T + e] = p.src[g * T + e];
-    stage[2 * T + e] = reinterpret_cast<const int32_t*>(p.w)[g * T + e];
+    lid[e] = p.lid[g * T + e];
+    src[e] = p.src[g * T + e];
+    w[e] = reinterpret_cast<const int32_t*>(p.w)[g * T + e];
   }
-  if (threadIdx.x < kMeta) stage[3 * T + threadIdx.x] = p.meta[g * kMeta + threadIdx.x];
+  if (threadIdx.x < kMeta) st.meta()[threadIdx.x] = p.meta[g * kMeta + threadIdx.x];
 }
 
 // chunk g's plan is in its stage (the n-th use of the stage waits for
@@ -242,8 +270,8 @@ __device__ __forceinline__ void store_cols(float* out, float4 v, int n, bool vec
 }
 
 // column tile [c0, c0 + cw) of chunk's real source rows into a buffer
-template <bool XVEC>
-__device__ __forceinline__ void stage_rows(float* buf, const int32_t* s_lid, const int32_t* s_src,
+template <bool XVEC, typename TL>
+__device__ __forceinline__ void stage_rows(float* buf, const TL* s_lid, const int32_t* s_src,
                                            const float* __restrict__ x, int T, int limit, int D,
                                            int CW, int c0) {
   const int cw = D - c0 < CW ? D - c0 : CW;
@@ -293,21 +321,21 @@ __device__ __forceinline__ void reduce_span(const float* carry_val, float* y, in
 
 // XVEC: x is 16-byte aligned and D % 4 == 0 (16-byte staging copies);
 // y and carry_val are 16-byte aligned, so rows are stored 16 bytes at a
-// time whenever D % 4 == 0.  bulk: T % 4 == 0 and the plan arrays are
-// 16-byte aligned (the plan arrives by bulk copies).
+// time whenever D % 4 == 0.  bulk: T * sizeof(TL) % 16 == 0 and the plan
+// arrays are 16-byte aligned (the plan arrives by bulk copies).
 //
 // A CTA walks items (chunk g = blockIdx.x + k*gridDim.x, column tile j) in
 // order.  While it sums item i from one buffer, item i+1's source rows are
 // in flight into the other; the plan of chunk k+2 is fetched when chunk k
 // is done.
-template <bool WINDOW, bool XVEC>
+template <bool WINDOW, bool XVEC, typename TL>
 __global__ void __launch_bounds__(kThreads, 3)
-chunk_staged_kernel(Plan plan, const float* __restrict__ x, float* y, float* carry_val,
+chunk_staged_kernel(Plan<TL> plan, const float* __restrict__ x, float* y, float* carry_val,
                     int32_t* counter, int G, int T, int R, int W, int D, int CW, int bulk) {
   extern __shared__ __align__(16) unsigned char s_raw[];
   float* s_buf = reinterpret_cast<float*>(s_raw);                 // 2 x T x CW
-  int32_t* s_plan = reinterpret_cast<int32_t*>(s_raw + 2 * (size_t)T * CW * 4);  // 2 stages
-  int* s_start = s_plan + 2 * (3 * T + kMeta);                   // T + 1
+  unsigned char* s_plan = s_raw + 2 * (size_t)T * CW * 4;        // 2 stages
+  int* s_start = reinterpret_cast<int*>(s_plan + 2 * stage_bytes(T, sizeof(TL)));  // T + 1
   __shared__ unsigned s_mask[kMaxT / 32];
   __shared__ int s_off[kMaxT / 32];
   __shared__ int s_valid[kMaxT / 32];
@@ -337,23 +365,25 @@ chunk_staged_kernel(Plan plan, const float* __restrict__ x, float* y, float* car
     __syncthreads();
   }
   // prologue: the plans of the CTA's first two chunks, the first item's rows
-  load_plan(bulk, bar[0], stage_at(s_plan, 0, T), plan, blockIdx.x, T);
+  const Stage<TL> st0 = stage_at<TL>(s_plan, 0, T);
+  load_plan(bulk, bar[0], st0, plan, blockIdx.x, T);
   if (bulk && blockIdx.x + stride < G)
-    load_plan(true, bar[1], stage_at(s_plan, 1, T), plan, blockIdx.x + stride, T);
+    load_plan(true, bar[1], stage_at<TL>(s_plan, 1, T), plan, blockIdx.x + stride, T);
   plan_ready(bulk, bar[0], 0);
-  stage_rows<XVEC>(s_buf, stage_at(s_plan, 0, T), stage_at(s_plan, 0, T) + T, x, T, limit, D, CW, 0);
+  stage_rows<XVEC>(s_buf, st0.lid(), st0.src(), x, T, limit, D, CW, 0);
   cp_async_commit();
 
   int item = 0;
   int k = 0;
   for (int64_t g = blockIdx.x; g < G; g += stride, ++k) {
-    int32_t* stg = stage_at(s_plan, k & 1, T);
-    const int32_t* s_lid = stg;
-    const float* s_w = reinterpret_cast<const float*>(stg + 2 * T);
-    const int b = stg[3 * T];
-    const int64_t base = stg[3 * T + 1];
-    const int64_t hi = stg[3 * T + 2];
-    const int flags = stg[3 * T + 3];
+    const Stage<TL> stg = stage_at<TL>(s_plan, k & 1, T);
+    const TL* s_lid = stg.lid();
+    const float* s_w = stg.w();
+    const int32_t* s_meta = stg.meta();
+    const int b = s_meta[0];
+    const int64_t base = s_meta[1];
+    const int64_t hi = s_meta[2];
+    const int flags = s_meta[3];
     const bool first = flags & 1;
     const bool cont_in = (flags >> 2) & 1;
     const bool opens = (flags >> 3) & 1;
@@ -433,12 +463,12 @@ chunk_staged_kernel(Plan plan, const float* __restrict__ x, float* y, float* car
       // the next item's rows into the other buffer (its chunk's plan first)
       float* nbuf = s_buf + (size_t)((item + 1) & 1) * T * CW;
       if (j + 1 < ntile) {
-        stage_rows<XVEC>(nbuf, s_lid, stg + T, x, T, limit, D, CW, c0 + CW);
+        stage_rows<XVEC>(nbuf, s_lid, stg.src(), x, T, limit, D, CW, c0 + CW);
       } else if (g + stride < G) {
-        int32_t* nstg = stage_at(s_plan, (k + 1) & 1, T);
+        const Stage<TL> nstg = stage_at<TL>(s_plan, (k + 1) & 1, T);
         if (!bulk) load_plan(false, 0, nstg, plan, g + stride, T);
         plan_ready(bulk, bar[(k + 1) & 1], (k + 1) >> 1);
-        stage_rows<XVEC>(nbuf, nstg, nstg + T, x, T, limit, D, CW, 0);
+        stage_rows<XVEC>(nbuf, nstg.lid(), nstg.src(), x, T, limit, D, CW, 0);
       }
       cp_async_commit();
       cp_async_wait_prior();
@@ -475,9 +505,9 @@ chunk_staged_kernel(Plan plan, const float* __restrict__ x, float* y, float* car
       // each span this chunk holds a part of counts its parts; the CTA that
       // adds the last sums the row (fenced: the barrier orders the CTA's
       // slot stores before thread 0's fence and count)
-      const int64_t ga = stg[3 * T + 4];
-      const int len_in = stg[3 * T + 5];
-      const int len_out = stg[3 * T + 6];
+      const int64_t ga = s_meta[4];
+      const int len_in = s_meta[5];
+      const int len_out = s_meta[6];
       if (tid == 0) {
         __threadfence();
         int done = 0;
@@ -509,9 +539,9 @@ std::atomic<bool> g_ready[kMaxDevices];
 std::mutex g_mutex;
 std::map<std::tuple<int, const void*, size_t>, int> g_fit;  // CTAs a SM by (device, kernel, smem)
 
-template <bool WINDOW, bool XVEC>
+template <bool WINDOW, bool XVEC, typename TL>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(chunk_staged_kernel<WINDOW, XVEC>,
+  return cudaFuncSetAttribute(chunk_staged_kernel<WINDOW, XVEC, TL>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxStagedSmem);
 }
 
@@ -522,10 +552,12 @@ const DeviceSetup& device_setup(int device) {
   DeviceSetup& s = g_setup[device];
   if (g_ready[device].load(std::memory_order_relaxed)) return s;
   cudaError_t err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = allow_smem<false, false>();
-  if (err == cudaSuccess) err = allow_smem<false, true>();
-  if (err == cudaSuccess) err = allow_smem<true, false>();
-  if (err == cudaSuccess) err = allow_smem<true, true>();
+  if (err == cudaSuccess) err = allow_smem<false, false, int32_t>();
+  if (err == cudaSuccess) err = allow_smem<false, true, int32_t>();
+  if (err == cudaSuccess) err = allow_smem<true, false, int32_t>();
+  if (err == cudaSuccess) err = allow_smem<true, true, int32_t>();
+  if (err == cudaSuccess) err = allow_smem<false, false, int16_t>();
+  if (err == cudaSuccess) err = allow_smem<false, true, int16_t>();
   s.err = err;
   g_ready[device].store(true, std::memory_order_release);
   return s;
@@ -545,13 +577,13 @@ cudaError_t ctas_per_sm(int device, K kernel, size_t smem, int* fit) {
   return err;
 }
 
-template <bool WINDOW, bool XVEC>
-cudaError_t launch_staged(const Plan& plan, const float* x, float* y, float* carry_val,
+template <bool WINDOW, bool XVEC, typename TL>
+cudaError_t launch_staged(const Plan<TL>& plan, const float* x, float* y, float* carry_val,
                           int32_t* counter, int G, int T, int R, int W, int D, int bulk,
                           int device, const DeviceSetup& s, cudaStream_t st) {
   const int CW = column_tile(T, D);
-  const size_t smem = staged_smem_bytes(T, CW);
-  auto kernel = chunk_staged_kernel<WINDOW, XVEC>;
+  const size_t smem = staged_smem_bytes(T, CW, sizeof(TL));
+  auto kernel = chunk_staged_kernel<WINDOW, XVEC, TL>;
   int fit = 0;
   cudaError_t err = ctas_per_sm(device, kernel, smem, &fit);
   if (err != cudaSuccess) return err;
@@ -563,20 +595,41 @@ cudaError_t launch_staged(const Plan& plan, const float* x, float* y, float* car
   return cudaGetLastError();
 }
 
-// the entry of P1 (W > 0) and P3 (W == 0): checks, the device, the
-// counters, one launch
-int staged_entry(bool window, const void* src, const void* w, const void* lid, const void* meta,
-                 const void* x, void* y, void* carry_val, void* counter, int G, int T, int R,
-                 int W, int D, int vec, int device, void* stream) {
+// the launch for a plan's id type: window plans have int32 ids
+template <typename TL>
+cudaError_t launch_plan(const Plan<TL>& plan, const float* x, float* y, float* carry_val,
+                        int32_t* counter, int G, int T, int R, int W, int D, int vec, int bulk,
+                        int device, const DeviceSetup& s, cudaStream_t st) {
+  if constexpr (sizeof(TL) == 4) {
+    if (W > 0)
+      return vec ? launch_staged<true, true>(plan, x, y, carry_val, counter, G, T, R, W, D, bulk,
+                                             device, s, st)
+                 : launch_staged<true, false>(plan, x, y, carry_val, counter, G, T, R, W, D, bulk,
+                                              device, s, st);
+  }
+  return vec ? launch_staged<false, true>(plan, x, y, carry_val, counter, G, T, R, 0, D, bulk,
+                                          device, s, st)
+             : launch_staged<false, false>(plan, x, y, carry_val, counter, G, T, R, 0, D, bulk,
+                                           device, s, st);
+}
+
+// the entry of P1 (W > 0), P2 (int16 ids: tl == 2) and P3: checks, the
+// device, the counters, one launch
+int staged_entry(bool window, int tl, const void* src, const void* w, const void* lid,
+                 const void* meta, const void* x, void* y, void* carry_val, void* counter, int G,
+                 int T, int R, int W, int D, int vec, int device, void* stream) {
   if (G <= 0 || T <= 0 || T > kMaxT || D <= 0 || D > 256 || R <= 0 || device < 0 ||
       device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   if (window ? (W <= 0 || W >= R) : (W != 0)) return (int)cudaErrorInvalidValue;
+  // int16 ids: full-block plans whose pad id R fits
+  if (tl != 4 && (tl != 2 || window || R > INT16_MAX)) return (int)cudaErrorInvalidValue;
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   // a 16-byte load path asked for a table it cannot read is refused
   if (vec && (D % 4 != 0 || !aligned(x))) return (int)cudaErrorInvalidValue;
   if (D % 4 == 0 && !(aligned(y) && aligned(carry_val))) return (int)cudaErrorInvalidValue;
-  const int bulk = T % 4 == 0 && aligned(src) && aligned(w) && aligned(lid) && aligned(meta);
+  const int bulk =
+      T * tl % 16 == 0 && aligned(src) && aligned(w) && aligned(lid) && aligned(meta);
   int current = 0;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
@@ -586,308 +639,52 @@ int staged_entry(bool window, const void* src, const void* w, const void* lid, c
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, (size_t)G * 4, st);
   if (err == cudaSuccess) {
-    const Plan plan{static_cast<const int32_t*>(src), static_cast<const float*>(w),
-                    static_cast<const int32_t*>(lid), static_cast<const int32_t*>(meta)};
+    const int32_t* sp = static_cast<const int32_t*>(src);
+    const float* wp = static_cast<const float*>(w);
+    const int32_t* mp = static_cast<const int32_t*>(meta);
     const float* xp = static_cast<const float*>(x);
     float* yp = static_cast<float*>(y);
     float* cv = static_cast<float*>(carry_val);
     int32_t* cn = static_cast<int32_t*>(counter);
-    if (window && vec)
-      err = launch_staged<true, true>(plan, xp, yp, cv, cn, G, T, R, W, D, bulk, device, s, st);
-    else if (window)
-      err = launch_staged<true, false>(plan, xp, yp, cv, cn, G, T, R, W, D, bulk, device, s, st);
-    else if (vec)
-      err = launch_staged<false, true>(plan, xp, yp, cv, cn, G, T, R, 0, D, bulk, device, s, st);
+    if (tl == 2)
+      err = launch_plan(Plan<int16_t>{sp, wp, static_cast<const int16_t*>(lid), mp}, xp, yp, cv,
+                        cn, G, T, R, 0, D, vec, bulk, device, s, st);
     else
-      err = launch_staged<false, false>(plan, xp, yp, cv, cn, G, T, R, 0, D, bulk, device, s, st);
+      err = launch_plan(Plan<int32_t>{sp, wp, static_cast<const int32_t*>(lid), mp}, xp, yp, cv,
+                        cn, G, T, R, W, D, vec, bulk, device, s, st);
   }
-  if (current != device) cudaSetDevice(current);
-  return (int)err;
-}
-
-// ---------------------------------------------------------------------------
-// P2: the first design (one CTA a chunk, a second launch for the carries)
-// ---------------------------------------------------------------------------
-
-template <int VPL>
-__device__ __forceinline__ void zero_rows(float* y, int64_t r0, int64_t r1, int D, int lane) {
-  for (int64_t r = r0; r < r1; ++r) {
-    float* yr = y + r * D;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int c = lane + 32 * j;
-      if (c < D) yr[c] = 0.0f;
-    }
-  }
-}
-
-template <typename TL, int VPL, bool WINDOW>
-__global__ void __launch_bounds__(kThreads)
-chunk_kernel(const int32_t* __restrict__ src, const float* __restrict__ w,
-             const TL* __restrict__ lid, const int32_t* __restrict__ block_id,
-             const int32_t* __restrict__ first_chunk, const int32_t* __restrict__ win_start,
-             const float* __restrict__ x, float* __restrict__ y,
-             float* __restrict__ carry_val, int32_t* __restrict__ carry_row,
-             int G, int T, int R, int W, int D) {
-  // edges whose source rows one warp keeps in flight
-  constexpr int kBatch = VPL <= 2 ? 8 : (VPL <= 4 ? 4 : 2);
-  extern __shared__ int s_dyn[];
-  int* s_lid = s_dyn;          // T local ids
-  int* s_start = s_dyn + T;    // first edge of each run
-  __shared__ unsigned s_mask[kMaxT / 32];
-  __shared__ int s_off[kMaxT / 32];
-  __shared__ int s_valid[kMaxT / 32];
-  __shared__ int s_nr, s_nvalid;
-
-  const int g = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int limit = WINDOW ? W : R;
-  const int64_t e0 = (int64_t)g * T;
-  for (int e = threadIdx.x; e < T; e += kThreads) s_lid[e] = (int)lid[e0 + e];
-  __syncthreads();
-
-  // run starts: a real edge whose local id differs from the edge before it
-  const int nwords = (T + 31) / 32;
-  for (int k = warp; k < nwords; k += kWarps) {
-    const int e = k * 32 + lane;
-    const bool valid = e < T && s_lid[e] < limit;
-    const bool start = valid && (e == 0 || s_lid[e - 1] != s_lid[e]);
-    const unsigned sm = __ballot_sync(kFull, start);
-    const unsigned vm = __ballot_sync(kFull, valid);
-    if (lane == 0) {
-      s_mask[k] = sm;
-      s_valid[k] = __popc(vm);
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int cnt = lane < nwords ? __popc(s_mask[lane]) : 0;
-    int inc = cnt;
-    int vc = lane < nwords ? s_valid[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(kFull, inc, o);
-      if (lane >= o) inc += t;
-      vc += __shfl_xor_sync(kFull, vc, o);
-    }
-    if (lane < nwords) s_off[lane] = inc - cnt;
-    if (lane == 31) s_nr = inc;
-    if (lane == 0) s_nvalid = vc;
-  }
-  __syncthreads();
-  for (int k = warp; k < nwords; k += kWarps) {
-    const unsigned sm = s_mask[k];
-    if ((sm >> lane) & 1u) s_start[s_off[k] + __popc(sm & ((1u << lane) - 1u))] = k * 32 + lane;
-  }
-  __syncthreads();
-
-  const int nr = s_nr;
-  const int nvalid = s_nvalid;
-  const int b = block_id[g];
-  const int64_t blk_lo = (int64_t)b * R;
-  const int64_t base_row = blk_lo + (WINDOW ? win_start[g] : 0);
-  const bool first = first_chunk[g] != 0;
-  const bool last = (g + 1 == G) || block_id[g + 1] != b;
-  // the first row of the block's next chunk ends this chunk's zero range
-  int64_t next_row = blk_lo + R;
-  if (!last) next_row = blk_lo + (WINDOW ? win_start[g + 1] : 0) + (int)lid[e0 + T];
-
-  if (threadIdx.x == 0) {
-    const bool c0 = nr > 0 && (!first || (nr == 1 && !last));
-    const bool c1 = nr > 1 && !last;
-    carry_row[2 * (int64_t)g] = c0 ? (int32_t)(base_row + s_lid[s_start[0]]) : -1;
-    carry_row[2 * (int64_t)g + 1] = c1 ? (int32_t)(base_row + s_lid[s_start[nr - 1]]) : -1;
-  }
-  if (warp == 0 && first) zero_rows<VPL>(y, blk_lo, nr ? base_row + s_lid[s_start[0]] : next_row, D, lane);
-
-  for (int k = warp; k < nr; k += kWarps) {
-    const int beg = s_start[k];
-    const int end = k + 1 < nr ? s_start[k + 1] : nvalid;
-    const int64_t row = base_row + s_lid[beg];
-    float acc[VPL];
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) acc[j] = 0.0f;
-    for (int b0 = beg; b0 < end; b0 += 32) {
-      const int e = b0 + lane;
-      int32_t s = 0;
-      float we = 0.0f;
-      if (e < end) {
-        s = src[e0 + e];
-        we = w[e0 + e];
-      }
-      const int n = end - b0 < 32 ? end - b0 : 32;
-      for (int k0 = 0; k0 < n; k0 += kBatch) {
-        float v[kBatch][VPL];
-#pragma unroll
-        for (int kk = 0; kk < kBatch; ++kk) {
-          const int i = k0 + kk;
-          const int32_t sk = __shfl_sync(kFull, s, i & 31);
-          const float wk = __shfl_sync(kFull, we, i & 31);
-          const float* xr = x + (int64_t)sk * D;
-#pragma unroll
-          for (int j = 0; j < VPL; ++j) {
-            const int c = lane + 32 * j;
-            v[kk][j] = (i < n && c < D) ? __fmul_rn(wk, xr[c]) : 0.0f;
-          }
-        }
-#pragma unroll
-        for (int kk = 0; kk < kBatch; ++kk) {
-          if (k0 + kk < n) {
-#pragma unroll
-            for (int j = 0; j < VPL; ++j) acc[j] = __fadd_rn(acc[j], v[kk][j]);
-          }
-        }
-      }
-    }
-    const bool carry = (k == 0 && !first) || (k == nr - 1 && !last);
-    float* out = carry ? carry_val + (2 * (int64_t)g + (k == 0 ? 0 : 1)) * D : y + row * D;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int c = lane + 32 * j;
-      if (c < D) out[c] = acc[j];
-    }
-    zero_rows<VPL>(y, row + 1, k + 1 < nr ? base_row + s_lid[s_start[k + 1]] : next_row, D, lane);
-  }
-}
-
-// One warp per carry slot: the first slot of a row sums all of that row's
-// slots in chunk order, from 0, and writes the row.  It reads 32 slot row
-// ids at a time and keeps up to kBatch partial rows in flight (a hub row has
-// one slot per chunk it spans).
-template <int VPL>
-__global__ void __launch_bounds__(kThreads)
-carry_kernel(const float* __restrict__ carry_val, const int32_t* __restrict__ carry_row,
-             float* __restrict__ y, int64_t nslots, int D) {
-  constexpr int kBatch = 8;
-  const int lane = threadIdx.x & 31;
-  const int64_t slot = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (slot >= nslots) return;
-  const int32_t row = carry_row[slot];
-  if (row < 0) return;
-  int64_t p = slot - 1;
-  while (p >= 0 && carry_row[p] < 0) --p;
-  if (p >= 0 && carry_row[p] == row) return;
-  float acc[VPL];
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) acc[j] = 0.0f;
-  for (int64_t q = slot;; q += 32) {
-    const int64_t qq = q + lane;
-    const int32_t rq = qq < nslots ? carry_row[qq] : -2;
-    // the row's slots end at the first slot of another row, or at the end
-    const unsigned stop = __ballot_sync(kFull, rq != row && rq != -1);
-    const unsigned mine = stop ? (1u << (__ffs(stop) - 1)) - 1u : kFull;
-    unsigned take = __ballot_sync(kFull, rq == row) & mine;
-    while (take) {
-      int k[kBatch];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        k[b] = take ? __ffs(take) - 1 : -1;
-        take &= take - 1u;
-      }
-      float v[kBatch][VPL];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const float* cv = carry_val + (q + (k[b] < 0 ? 0 : k[b])) * D;
-#pragma unroll
-        for (int j = 0; j < VPL; ++j) {
-          const int c = lane + 32 * j;
-          v[b][j] = (k[b] >= 0 && c < D) ? cv[c] : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        if (k[b] >= 0) {
-#pragma unroll
-          for (int j = 0; j < VPL; ++j) acc[j] = __fadd_rn(acc[j], v[b][j]);
-        }
-      }
-    }
-    if (stop) break;
-  }
-  float* yr = y + (int64_t)row * D;
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c < D) yr[c] = acc[j];
-  }
-}
-
-template <typename TL, int VPL, bool WINDOW>
-cudaError_t launch_vpl(const int32_t* src, const float* w, const TL* lid, const int32_t* block_id,
-                       const int32_t* first_chunk, const int32_t* win_start, const float* x,
-                       float* y, float* carry_val, int32_t* carry_row, int G, int T, int R,
-                       int W, int D, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)T * sizeof(int);
-  chunk_kernel<TL, VPL, WINDOW><<<G, kThreads, smem, stream>>>(
-      src, w, lid, block_id, first_chunk, win_start, x, y, carry_val, carry_row, G, T, R, W, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t nslots = 2 * (int64_t)G;
-  const unsigned grid = (unsigned)((nslots + kWarps - 1) / kWarps);
-  carry_kernel<VPL><<<grid, kThreads, 0, stream>>>(carry_val, carry_row, y, nslots, D);
-  return cudaGetLastError();
-}
-
-// P2's launch: int16 local ids, full-block chunks
-int launch_i16(const void* src, const void* w, const void* lid, const void* block_id,
-               const void* first_chunk, const void* x, void* y, void* carry_val, void* carry_row,
-               int G, int T, int R, int D, int device, void* stream) {
-  if (G <= 0 || T <= 0 || T > kMaxT || D <= 0 || R <= 0 || device < 0)
-    return (int)cudaErrorInvalidValue;
-  int current = 0;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return (int)err;
-  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
-  const int32_t* sp = static_cast<const int32_t*>(src);
-  const float* wp = static_cast<const float*>(w);
-  const int16_t* lp = static_cast<const int16_t*>(lid);
-  const int32_t* bp = static_cast<const int32_t*>(block_id);
-  const int32_t* fp = static_cast<const int32_t*>(first_chunk);
-  const float* xp = static_cast<const float*>(x);
-  float* yp = static_cast<float*>(y);
-  float* cv = static_cast<float*>(carry_val);
-  int32_t* cr = static_cast<int32_t*>(carry_row);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) err = launch_vpl<int16_t, 1, false>(sp, wp, lp, bp, fp, nullptr, xp, yp, cv, cr, G, T, R, 0, D, st);
-  else if (D <= 64) err = launch_vpl<int16_t, 2, false>(sp, wp, lp, bp, fp, nullptr, xp, yp, cv, cr, G, T, R, 0, D, st);
-  else if (D <= 128) err = launch_vpl<int16_t, 4, false>(sp, wp, lp, bp, fp, nullptr, xp, yp, cv, cr, G, T, R, 0, D, st);
-  else if (D <= 256) err = launch_vpl<int16_t, 8, false>(sp, wp, lp, bp, fp, nullptr, xp, yp, cv, cr, G, T, R, 0, D, st);
-  else err = cudaErrorInvalidValue;
   if (current != device) cudaSetDevice(current);
   return (int)err;
 }
 
 }  // namespace
 
-// P3 and P1: one launch of chunk_staged_kernel on `stream` of `device`
-// (the counters zeroed before it).  meta is the (G, 8) int32 chunk table
-// of ops/segment_plan.py chunk_meta; carry_val (2G, D) fp32 and counter
-// (G,) int32 are scratch; y is the (num_blocks*R, D) fp32 block space.
-// vec = 1: x is 16-byte aligned and D % 4 == 0 (refused otherwise).
-// Returns the first error (0 = launched).
+// P3: one launch of chunk_staged_kernel on `stream` of `device` (the
+// counters zeroed before it).  lid is the plan's int32 local ids, meta the
+// (G, 8) int32 chunk table of ops/segment_plan.py chunk_meta; carry_val
+// (2G, D) fp32 and counter (G,) int32 are scratch; y is the
+// (num_blocks*R, D) fp32 block space.  vec = 1: x is 16-byte aligned and
+// D % 4 == 0 (refused otherwise).  Returns the first error (0 = launched).
 extern "C" int chunk_spmm_block(const void* src, const void* w, const void* lid, const void* meta,
                                 const void* x, void* y, void* carry_val, void* counter, int G,
                                 int T, int R, int D, int vec, int device, void* stream) {
-  return staged_entry(false, src, w, lid, meta, x, y, carry_val, counter, G, T, R, 0, D, vec,
+  return staged_entry(false, 4, src, w, lid, meta, x, y, carry_val, counter, G, T, R, 0, D, vec,
                       device, stream);
 }
 
-// the same for window chunks of W rows
+// P1: the same for window chunks of W rows
 extern "C" int chunk_spmm_window(const void* src, const void* w, const void* lid,
                                  const void* meta, const void* x, void* y, void* carry_val,
                                  void* counter, int G, int T, int R, int W, int D, int vec,
                                  int device, void* stream) {
-  return staged_entry(true, src, w, lid, meta, x, y, carry_val, counter, G, T, R, W, D, vec,
+  return staged_entry(true, 4, src, w, lid, meta, x, y, carry_val, counter, G, T, R, W, D, vec,
                       device, stream);
 }
 
-// P2: the chunk kernel and the carry kernel on `stream` of `device`;
-// carry_val is (2G, D) fp32 and carry_row (2G,) int32 scratch.
-extern "C" int chunk_spmm_i16(const void* src, const void* w, const void* lid,
-                              const void* block_id, const void* first_chunk, const void* x,
-                              void* y, void* carry_val, void* carry_row, int G, int T, int R,
-                              int D, int device, void* stream) {
-  return launch_i16(src, w, lid, block_id, first_chunk, x, y, carry_val, carry_row, G, T, R, D,
-                    device, stream);
+// P2: the same as P3 with int16 local ids (R <= 32767)
+extern "C" int chunk_spmm_i16(const void* src, const void* w, const void* lid, const void* meta,
+                              const void* x, void* y, void* carry_val, void* counter, int G,
+                              int T, int R, int D, int vec, int device, void* stream) {
+  return staged_entry(false, 2, src, w, lid, meta, x, y, carry_val, counter, G, T, R, 0, D, vec,
+                      device, stream);
 }

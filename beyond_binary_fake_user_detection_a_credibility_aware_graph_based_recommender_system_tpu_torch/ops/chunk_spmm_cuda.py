@@ -1,6 +1,6 @@
 """The edge-chunked SpMM kernels: build, bind, launch.
 
-``csrc/chunk_spmm.cu`` holds two designs, each entry with its own launch
+``csrc/chunk_spmm.cu`` has three entries, each with its own launch
 counter:
 
 * :data:`KERNEL_BLOCK` (``chunk_spmm_block``): full-block chunks, int32
@@ -9,16 +9,16 @@ counter:
 * :data:`KERNEL_WINDOW` (``chunk_spmm_window``): window chunks at
   ``win_start``; replaces P1 (``apply_window``,
   ``scripts/probe_window_kernel.py:127``);
-
-  both one launch of ``chunk_staged_kernel`` per application: a persistent
-  grid, each chunk's source rows staged in shared memory, and a row that
-  runs across chunks summed from its parts in the same launch by the CTA
-  that brings the last part (an integer counter per such row, from the
-  plan's ``chunk_meta()``; no float atomics);
 * :data:`KERNEL_I16` (``chunk_spmm_i16``): full-block chunks reading int16
   local ids; replaces P2 (``apply_i16``,
-  ``scripts/probe_window_kernel.py:182``) with the first design, a chunk
-  kernel and a carry kernel (two launches an application).
+  ``scripts/probe_window_kernel.py:182``).
+
+Each is one launch of ``chunk_staged_kernel`` per application (templated
+on the window and the id type): a persistent grid, each chunk's source
+rows staged in shared memory, and a row that runs across chunks summed
+from its parts in the same launch by the CTA that brings the last part (an
+integer counter per such row, from the plan's ``chunk_meta()``; no float
+atomics).
 
 Each returns the raw ``(num_blocks*R, D)`` fp32 block space of a
 :class:`~.segment_plan.SegmentPlan`.  The plain version and the wrappers
@@ -48,22 +48,17 @@ def x_load(x: torch.Tensor) -> str:
 
 
 class ChunkSpmmKernel(CudaKernel):
-    """One entry of the chunked kernels and its launch counter: the staged
-    design (``staged=True``: P1, P3) or the first one (P2)."""
+    """One entry of the staged chunk kernel and its launch counter."""
 
-    def __init__(self, symbol: str, window: bool, lid_dtype: torch.dtype,
-                 staged: bool):
-        if staged:
-            argtypes = ([ctypes.c_void_p] * 8
-                        + [ctypes.c_int] * (7 if window else 6)
-                        + [ctypes.c_void_p])
-        else:
-            argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                        + [ctypes.c_void_p])
+    def __init__(self, symbol: str, window: bool, lid_dtype: torch.dtype):
+        # src, w, lid, meta, x, y, carry_val, counter; G, T, R, [W], D, vec,
+        # device; stream
+        argtypes = ([ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * (7 if window else 6)
+                    + [ctypes.c_void_p])
         super().__init__(SOURCE, symbol, argtypes)
         self.window = window
         self.lid_dtype = lid_dtype
-        self.staged = staged
 
     def _check(self, plan: SegmentPlan, x: torch.Tensor) -> None:
         dev = x.device
@@ -99,16 +94,8 @@ class ChunkSpmmKernel(CudaKernel):
         y = torch.empty(plan.num_blocks * R, D, dtype=torch.float32,
                         device=dev)
         carry_val = torch.empty(2 * G, D, dtype=torch.float32, device=dev)
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        if not self.staged:
-            carry_row = torch.empty(2 * G, dtype=torch.int32, device=dev)
-            self._launch(plan.src_padded.data_ptr(), plan.w_padded.data_ptr(),
-                         lid.data_ptr(), plan.block_id.data_ptr(),
-                         plan.first_chunk.data_ptr(), x.data_ptr(),
-                         y.data_ptr(), carry_val.data_ptr(),
-                         carry_row.data_ptr(), G, T, R, D, dev.index, stream)
-            return y
         counter = torch.empty(G, dtype=torch.int32, device=dev)
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
         ints = [G, T, R] + ([plan.window] if self.window else [])
         self._launch(plan.src_padded.data_ptr(), plan.w_padded.data_ptr(),
                      lid.data_ptr(), plan.chunk_meta().data_ptr(), x.data_ptr(),
@@ -117,7 +104,7 @@ class ChunkSpmmKernel(CudaKernel):
         return y
 
 
-KERNEL_BLOCK = ChunkSpmmKernel("chunk_spmm_block", False, torch.int32, True)
-KERNEL_WINDOW = ChunkSpmmKernel("chunk_spmm_window", True, torch.int32, True)
-KERNEL_I16 = ChunkSpmmKernel("chunk_spmm_i16", False, torch.int16, False)
+KERNEL_BLOCK = ChunkSpmmKernel("chunk_spmm_block", False, torch.int32)
+KERNEL_WINDOW = ChunkSpmmKernel("chunk_spmm_window", True, torch.int32)
+KERNEL_I16 = ChunkSpmmKernel("chunk_spmm_i16", False, torch.int16)
 KERNELS = (KERNEL_BLOCK, KERNEL_WINDOW, KERNEL_I16)

@@ -1,10 +1,12 @@
-"""Probe: where the staged chunk kernel's time goes (P1, P3), on the card.
+"""Probe: where the staged chunk kernel's time goes (P1, P2, P3), on the card.
 
 The kernel (``csrc/chunk_spmm.cu`` ``chunk_staged_kernel``) runs its CTAs
 through synchronous phases a chunk.  This probe builds copies of the source
 into ``build/chunk_profile/`` with probes written into that kernel and, for
-the probe graph of ``probes/window_kernel.py`` in both directions (the full-
-block R=512 T=256 plan and the W=64 window plan), prints:
+the probe graph of ``probes/window_kernel.py`` in both directions (layouts:
+``base``, the full-block R=512 T=256 plan with int32 local ids, P3;
+``i16``, the same plan read through int16 ids, P2; ``win64``, the W=64
+window plan, P1), prints:
 
 * each phase's SM cycles a chunk, seen by thread 0 of each CTA (``clock64``
   between the CTA's barriers, summed over chunks): the run scan, the zero
@@ -49,7 +51,7 @@ _PROBES = [
      "  if (tid == 0 && blockIdx.x < kMaxCtas) {\n"
      "    g_cta[3 * blockIdx.x] = gtime();\n"
      "    g_cta[3 * blockIdx.x + 2] = smid();\n  }\n", "after"),
-    ("    int32_t* stg = stage_at(s_plan, k & 1, T);\n",
+    ("    const Stage<TL> stg = stage_at<TL>(s_plan, k & 1, T);\n",
      "    long long t0 = clock64();\n", "before"),
     ("    const int nr = s_nr;\n", "    PHASE(0);\n", "before"),
     ("    for (int j = 0; j < ntile; ++j, ++item) {\n", "    PHASE(1);\n", "before"),
@@ -122,14 +124,21 @@ def probed_source(name: str) -> Path:
     return path
 
 
+# layout: (window W of its plan, local-id dtype)
+LAYOUTS = {"base": (0, torch.int32), "i16": (0, torch.int16),
+           "win64": (64, torch.int32)}
+
+
 def _kernels(path: Path):
-    """Block and window entries of a probed copy, and its library."""
-    kb = ChunkSpmmKernel("chunk_spmm_block", False, torch.int32, True)
-    kw = ChunkSpmmKernel("chunk_spmm_window", True, torch.int32, True)
-    kb.source = kw.source = path
-    lib = ctypes.CDLL(str(kb.build()))
+    """Each layout's entry of a probed copy, and its library."""
+    ks = {"base": ChunkSpmmKernel("chunk_spmm_block", False, torch.int32),
+          "i16": ChunkSpmmKernel("chunk_spmm_i16", False, torch.int16),
+          "win64": ChunkSpmmKernel("chunk_spmm_window", True, torch.int32)}
+    for k in ks.values():
+        k.source = path
+    lib = ctypes.CDLL(str(ks["base"].build()))
     lib.phase_read.argtypes = lib.cta_read.argtypes = [ctypes.c_void_p]
-    return kb, kw, lib
+    return ks, lib
 
 
 def _timeline(lib) -> dict:
@@ -156,16 +165,21 @@ def run(device="cuda", variants=tuple(ABLATIONS), users=58_867, items=261_728,
     if device.type != "cuda":
         raise RuntimeError("chunk_profile probes the CUDA kernel: it needs the card")
     dirs = directions(users, items, edges_per_user, dim, device)
-    plans = {(dn, lay): plan_for(d, device, window=64 if lay == "win64" else 0)
-             for dn, d in dirs.items() for lay in ("base", "win64")}
-    want = {k: chunk_spmm_blocks(p, dirs[k[0]]["x"]) for k, p in plans.items()}
+    plans = {}
+    for dn, d in dirs.items():
+        by_window = {W: plan_for(d, device, window=W)
+                     for W in {W for W, _ in LAYOUTS.values()}}
+        for lay, (W, _) in LAYOUTS.items():
+            plans[(dn, lay)] = by_window[W]
+    want = {(dn, lay): chunk_spmm_blocks(p, dirs[dn]["x"], LAYOUTS[lay][1])
+            for (dn, lay), p in plans.items()}
     rows = []
     print(f"chunk_profile on {device}: D={dim}, phases in SM cycles a chunk "
           f"(thread 0 of each CTA)")
     for name in variants:
-        kb, kw, lib = _kernels(probed_source(name))
+        ks, lib = _kernels(probed_source(name))
         for (dn, lay), plan in plans.items():
-            k, x = (kw if lay == "win64" else kb), dirs[dn]["x"]
+            k, x = ks[lay], dirs[dn]["x"]
             ok = torch.equal(k(plan, x), want[(dn, lay)])
             ms = queued_device_ms(lambda: k(plan, x), device, iters)
             lib.probe_reset()

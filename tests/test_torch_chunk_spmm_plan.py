@@ -1,4 +1,4 @@
-"""The host side of the staged chunk kernels (P1, P3) of the PyTorch package.
+"""The host side of the staged chunk kernel (P1, P2, P3) of the PyTorch package.
 
 ``csrc/chunk_spmm.cu``'s ``chunk_staged_kernel`` reads, per chunk, a row of
 ``SegmentPlan.chunk_meta()`` (built once per plan from its arrays and
@@ -13,11 +13,15 @@ the CTA that brings the last part.  On the CPU:
   order from 0, whole rows stored, span parts added in chunk order from 0,
   every other row of a chunk's range zeroed), is bit-equal to the plain
   version ``chunk_spmm_reference`` and writes every block-space row once;
+  the meta rows and the replay hold for the int16 local ids of every
+  full-block layout too (P2's stream);
 * the load path by alignment and width, and the routing of int16 plans to
-  P2's first design.
+  P2's entry of the same kernel.
 
 The ``cuda`` cases hold the kernel to the plain version on the card.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -28,9 +32,17 @@ from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommend
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops.segment_plan import build_segment_plan
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.probes import chunk_profile
 
-# (block rows R, chunk edges T, window W): T = 6 takes the threads' plan load
-LAYOUTS = {"block": (16, 16, 0), "block_t6": (16, 6, 0), "win8": (32, 16, 8),
+# (block rows R, chunk edges T, window W): T = 6 takes the threads' plan
+# load; T = 12 a bulk load with int32 ids, the threads' with int16 ones
+LAYOUTS = {"block": (16, 16, 0), "block_t6": (16, 6, 0),
+           "block_t12": (16, 12, 0), "win8": (32, 16, 8),
            "win16": (32, 16, 16)}
+# the full-block layouts read through int16 local ids (P2)
+I16_LAYOUTS = [f"{k}_i16" for k, (_, _, W) in LAYOUTS.items() if not W]
+
+
+def _lid_dtype(layout):
+    return torch.int16 if layout.endswith("_i16") else torch.int32
 
 
 def _case(name, seed=0):
@@ -65,15 +77,16 @@ CASES = ["random", "empty_blocks", "hub", "inf_row0", "one_row"]
 
 def _plan(case, layout):
     src, dst, w, ns, nd = _case(case)
-    R, T, W = LAYOUTS[layout]
+    R, T, W = LAYOUTS[layout.removesuffix("_i16")]
     return build_segment_plan(src, dst, w, nd, block_rows=R, chunk_edges=T,
                               num_src=ns, window=W), ns
 
 
-def _runs(plan):
-    """Per chunk: its (row, first edge, end edge) runs, in edge order."""
+def _runs(plan, lid_dtype=torch.int32):
+    """Per chunk: its (row, first edge, end edge) runs, in edge order, from
+    the local ids the kernel reads."""
     R, T, W = plan.block_rows, plan.chunk_edges, plan.window
-    lid = plan.local_ids.numpy().reshape(-1, T)
+    lid = plan.local_ids_as(lid_dtype).numpy().reshape(-1, T)
     base = plan.block_id.numpy().astype(np.int64) * R
     if W:
         base = base + plan.win_start.numpy()
@@ -99,12 +112,12 @@ def test_block_chunk_offsets_equal_numpy_count(case, layout):
     assert plan.block_chunk_offsets() is off        # built once
 
 
-@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("layout", list(LAYOUTS) + I16_LAYOUTS)
 @pytest.mark.parametrize("case", CASES)
 def test_chunk_meta_follows_its_definition(case, layout):
     plan, _ = _plan(case, layout)
     R, G = plan.block_rows, plan.num_chunks
-    runs, base = _runs(plan)
+    runs, base = _runs(plan, _lid_dtype(layout))
     bid = plan.block_id.numpy()
     first = plan.first_chunk.numpy().astype(bool)
     last = np.append(bid[1:] != bid[:-1], True)
@@ -132,14 +145,14 @@ def test_chunk_meta_follows_its_definition(case, layout):
     assert plan.chunk_meta() is meta
 
 
-def _replay(plan, x):
+def _replay(plan, x, lid_dtype=torch.int32):
     """The staged kernel's writes, chunk by chunk in a shuffled order (CTAs
     run in no order), from the meta rows; also counts each row's writes."""
     R, T, W = plan.block_rows, plan.chunk_edges, plan.window
     meta = plan.chunk_meta().numpy()
     src = plan.src_padded.numpy().reshape(-1, T)
     w = plan.w_padded.numpy().reshape(-1, T)
-    runs, _ = _runs(plan)
+    runs, _ = _runs(plan, lid_dtype)
     y = np.full((plan.num_blocks * R, x.shape[1]), np.nan, np.float32)
     writes = np.zeros(plan.num_blocks * R, np.int64)
     part = np.zeros((2 * plan.num_chunks, x.shape[1]), np.float32)
@@ -180,14 +193,14 @@ def _replay(plan, x):
     return y, writes
 
 
-@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("layout", list(LAYOUTS) + I16_LAYOUTS)
 @pytest.mark.parametrize("case", CASES)
 def test_span_replay_is_bit_equal_to_plain(case, layout):
     plan, ns = _plan(case, layout)
     x = np.random.default_rng(1).normal(size=(ns, 3)).astype(np.float32)
     if case == "inf_row0":
         x[0] = np.inf
-    y, writes = _replay(plan, x)
+    y, writes = _replay(plan, x, _lid_dtype(layout))
     assert (writes == 1).all()                  # every row written once
     want = cs.chunk_spmm_reference(plan, torch.as_tensor(x)).numpy()
     assert np.array_equal(y, want)
@@ -205,18 +218,23 @@ def test_x_load_by_alignment_and_width(D, offset):
     assert csc.x_load(buf[1:1 + 5 * D].view(5, D)) == "scalar"
 
 
-def test_int16_plans_take_the_first_design():
+def test_int16_plans_take_the_staged_kernel():
     plan, _ = _plan("hub", "block")
     wplan, _ = _plan("hub", "win8")
     assert cs._kernel(plan, torch.int16) is csc.KERNEL_I16
-    assert not csc.KERNEL_I16.staged
+    assert csc.KERNEL_I16.lid_dtype == torch.int16
     assert cs._kernel(plan, torch.int32) is csc.KERNEL_BLOCK
     assert cs._kernel(wplan, torch.int32) is csc.KERNEL_WINDOW
-    assert csc.KERNEL_BLOCK.staged and csc.KERNEL_WINDOW.staged
-    # the C entries' arities: 8 pointers, then ints, then the stream
-    assert len(csc.KERNEL_BLOCK.argtypes) == 8 + 6 + 1
-    assert len(csc.KERNEL_WINDOW.argtypes) == 8 + 7 + 1
-    assert len(csc.KERNEL_I16.argtypes) == 9 + 5 + 1
+    with pytest.raises(ValueError, match="int32 local ids"):
+        cs._kernel(wplan, torch.int16)
+    # the staged entries' signature: src, w, lid, meta, x, y, carry_val,
+    # counter, then G, T, R, [W], D, vec, device, then the stream; P2's is
+    # P3's
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    assert csc.KERNEL_BLOCK.argtypes == [ptr] * 8 + [i] * 6 + [ptr]
+    assert csc.KERNEL_WINDOW.argtypes == [ptr] * 8 + [i] * 7 + [ptr]
+    assert csc.KERNEL_I16.argtypes == csc.KERNEL_BLOCK.argtypes
+    assert csc.KERNEL_I16.source == csc.KERNEL_BLOCK.source
 
 
 @pytest.mark.parametrize("variant", list(chunk_profile.ABLATIONS))
@@ -243,7 +261,7 @@ def _card():
                     "cases at full size)")
 
 
-def _check_on_card(plan_args, D, x_offset=0):
+def _check_on_card(plan_args, D, x_offset=0, lid=torch.int32):
     src, dst, w, ns, nd, R, T, W = plan_args
     plan = build_segment_plan(src, dst, w, nd, block_rows=R, chunk_edges=T,
                               num_src=ns, window=W, device="cuda")
@@ -251,9 +269,12 @@ def _check_on_card(plan_args, D, x_offset=0):
                              num_src=ns, window=W)
     buf = torch.randn((ns + x_offset) * D, device="cuda")
     x = buf[x_offset * D:].view(ns, D)
-    y1 = cs.chunk_spmm_blocks(plan, x)
-    y2 = cs.chunk_spmm_blocks(plan, x)
+    kernel = cs._kernel(plan, lid)
+    launches = kernel.launches
+    y1 = cs.chunk_spmm_blocks(plan, x, lid)
+    y2 = cs.chunk_spmm_blocks(plan, x, lid)
     torch.cuda.synchronize()
+    assert kernel.launches == launches + 2
     assert torch.equal(y1, y2)
     assert torch.equal(y1.cpu(), cs.chunk_spmm_reference(cpu, x.cpu()))
 
@@ -273,8 +294,26 @@ def test_staged_kernel_matches_plain_on_card(D, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 36, 256])
+@pytest.mark.parametrize("D", [8, 63, 64, 256])
+def test_staged_i16_kernel_matches_plain_on_card(D, T):
+    """P2: T = 36 is a bulk plan load with int32 ids and the threads' with
+    int16 ones; T = 30 the threads' with either."""
+    _card()
+    rng = np.random.default_rng(D + T)
+    E = 20_000
+    src, dst = rng.integers(0, 3_000, E), np.sort(rng.integers(0, 5_000, E))
+    w = rng.normal(size=E).astype(np.float32)
+    args = (src.astype(np.int32), dst, w, 3_000, 5_000, 64 if T < 256 else 512,
+            T, 0)
+    _check_on_card(args, D, lid=torch.int16)
+    _check_on_card(args, D, x_offset=1, lid=torch.int16)
+
+
+@pytest.mark.cuda
 def test_staged_kernel_hub_block_on_card():
-    """A block whose 80+ chunks hold one row: a span of 80+ parts."""
+    """A block whose 80+ chunks hold one row: a span of 80+ parts, with
+    int32 and int16 local ids."""
     _card()
     rng = np.random.default_rng(5)
     E = 30_000
@@ -283,8 +322,9 @@ def test_staged_kernel_hub_block_on_card():
     plan = build_segment_plan(src, dst, np.ones(E, np.float32), 2_000,
                               num_src=4_000, window=0)
     assert int(torch.bincount(plan.block_id).max()) > 80
-    _check_on_card((src, dst, rng.normal(size=E).astype(np.float32), 4_000,
-                    2_000, 512, 256, 0), 64)
+    w = rng.normal(size=E).astype(np.float32)
+    for lid in (torch.int32, torch.int16):
+        _check_on_card((src, dst, w, 4_000, 2_000, 512, 256, 0), 64, lid=lid)
 
 
 @pytest.mark.cuda
