@@ -10,10 +10,13 @@
                                           [--cred D/cred.csv] [--out D/rec]
                                           [--checkpoint [--resume]] [k=v ...]
     python -m ..._tpu_torch.cli evaluate --graph D/graph.npz --params best.npz
-                                         --preset cu_message [k=v ...]
+                                         --preset cu_message [--mesh N] [k=v ...]
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs on the
-CPU).
+CPU).  ``evaluate --mesh N`` serves on a (data, model) mesh of N processes,
+one a card (NCCL; gloo with ``--device cpu``): ``--mesh 1`` (or ``all``
+without a launcher) in one process, N > 1 under
+``torchrun --nproc-per-node N -m ..._tpu_torch.cli evaluate --mesh N ...``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,37 @@ def _add_overrides(p):
 def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
+
+
+def _make_mesh(spec, device):
+    """``--mesh`` ('all' or a process count) -> ``(mesh, device, owned)``:
+    the (data, model) ``DeviceMesh``, this rank's device, and whether this
+    call created the process group (and so destroys it)."""
+    import torch
+    import torch.distributed as dist
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
+    from ..utils.device import resolve_device
+
+    world = distributed.launched_world_size()
+    n = world if spec == "all" else int(spec)
+    if n != world:
+        if distributed.launched():
+            raise ValueError(f"--mesh {n}, but the launcher started {world} "
+                             "processes")
+        raise RuntimeError(
+            f"--mesh {n} needs {n} processes, one a device: launch with "
+            f"torchrun --nproc-per-node {n} -m {__package__} evaluate "
+            f"--mesh {n} ...")
+    dev = resolve_device(distributed.rank_device(device))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    owned = not dist.is_initialized()
+    distributed.initialize(device=dev)
+    mesh = make_mesh(n, device_type=dev.type)
+    if dist.get_rank() == 0:
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    return mesh, dev, owned
 
 
 def cmd_build_graph(args):
@@ -67,7 +101,7 @@ def cmd_train_cred(args):
     if args.mesh:
         raise NotImplementedError(
             "--mesh: the port trains on one device; a sharded Stage-A "
-            "forward is ROADMAP.md Queue 1 item 11 (parallel/)")
+            "forward is ROADMAP.md Queue 1 item 11c (parallel/)")
     device = resolve_device(args.device)
     ccfg = CredConfig().with_overrides(args.overrides)
     table = ingest_jsonl(args.jsonl, IngestConfig(jsonl_path=args.jsonl),
@@ -115,8 +149,8 @@ def cmd_train_rec(args):
 
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: the port trains on one device; sharded training is "
-            "ROADMAP.md Queue 1 item 11 (parallel/)")
+            "--mesh: the port trains on one device; the sharded train step "
+            "is ROADMAP.md Queue 1 item 11b (parallel/)")
     cfg = get_preset(args.preset).with_overrides(args.overrides)
     if args.cred:
         cfg = cfg.replace(cred_csv_path=args.cred)
@@ -138,25 +172,31 @@ def cmd_train_rec(args):
 
 
 def cmd_evaluate(args):
-    """Prints the metric block and a JSON line; returns the metrics."""
+    """Prints the metric block and a JSON line (under a mesh: rank 0 only);
+    returns the metrics (every rank the same)."""
+    import torch.distributed as dist
     from ..configs.presets import get_preset
     from ..graph.build import BipartiteGraph
     from ..train.checkpoint import load_params_npz
     from ..train.trainer import RecTrainer, format_metrics_block
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the port evaluates on one device; sharded evaluation is "
-            "ROADMAP.md Queue 1 item 11 (parallel/)")
     cfg = get_preset(args.preset).with_overrides(args.overrides)
     if args.cred:
         cfg = cfg.replace(cred_csv_path=args.cred)
-    graph = BipartiteGraph.load_npz(args.graph)
-    trainer = RecTrainer(cfg, graph, device=args.device)
-    params = load_params_npz(args.params, device=trainer.device)
-    res = trainer.evaluate(params, args.split)
-    print(format_metrics_block(args.split.upper(), res))
-    print(json.dumps({str(k): v for k, v in res.items()}, default=float))
+    mesh, device, owned = (_make_mesh(args.mesh, args.device) if args.mesh
+                           else (None, args.device, False))
+    try:
+        graph = BipartiteGraph.load_npz(args.graph)
+        trainer = RecTrainer(cfg, graph, device=device, mesh=mesh)
+        params = load_params_npz(args.params, device=trainer.device)
+        res = trainer.evaluate(params, args.split)
+        if mesh is None or dist.get_rank() == 0:
+            print(format_metrics_block(args.split.upper(), res))
+            print(json.dumps({str(k): v for k, v in res.items()},
+                             default=float))
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
     return res
 
 
@@ -222,7 +262,9 @@ def build_parser():
     p.add_argument("--cred", default=None)
     p.add_argument("--split", default="test")
     p.add_argument("--mesh", default=None,
-                   help="not supported yet: evaluation runs on one device")
+                   help="serve on a (data, model) mesh of N processes "
+                        "('all': the launcher's world); N > 1 under "
+                        "torchrun --nproc-per-node N")
     _add_device(p)
     _add_overrides(p)
     p.set_defaults(fn=cmd_evaluate)

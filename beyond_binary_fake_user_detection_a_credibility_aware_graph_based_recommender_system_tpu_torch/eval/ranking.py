@@ -31,7 +31,7 @@ from ..ops.sampling import (DeviceCSR, row_contains, sample_candidate_set,
 from .metrics import (cred_groups, item_popularity, novelty_stats,
                       sampled_rank_metrics, topk_metrics)
 from .retrieval import (exact_fp32_matmul, exclusion_rows_for_users,
-                        mask_excluded)
+                        mask_excluded, topk_for_users)
 
 _METRICS = ("precision", "recall", "ndcg")
 
@@ -319,10 +319,14 @@ def evaluate_full(user_emb: torch.Tensor, item_emb: torch.Tensor,
                   ctx: EvalContext, split: str, Ks: Sequence[int] = (10, 20),
                   batch: int = 512, extended: bool = False,
                   cred: Optional[np.ndarray] = None,
-                  cred_group_pct: float = 0.20, topk: str = "exact",
+                  cred_group_pct: float = 0.20, mesh=None,
+                  topk: str = "exact",
                   score_dtype: str = "fp32") -> Dict[int, Dict[str, float]]:
     """Full-catalog masked ranking (reference lightgcn.py:459-509).
-    ``topk`` "exact" and "approx" both rank with the exact torch.topk."""
+    ``topk`` "exact" and "approx" both rank with the exact torch.topk.
+    With ``mesh`` (a ``DeviceMesh``) the ranking runs row-sharded over its
+    model axis with a distributed merge; every rank returns the same
+    metrics."""
     if topk not in ("exact", "approx"):
         raise ValueError(f"unknown topk {topk!r}")
     exact_fp32_matmul()
@@ -336,10 +340,19 @@ def evaluate_full(user_emb: torch.Tensor, item_emb: torch.Tensor,
     for bu, bu_host, n_valid in _batched(users, batch, ctx.device):
         excl = torch.as_tensor(ctx.train_exclusion_rows(bu_host),
                                device=ctx.device)
-        per_user, topk_items, logpop, selfinfo = _full_batch(
-            user_emb, item_emb, bu, excl, eval_csr, item_pop, tuple(Ks),
-            extended, ctx.total_train, ctx.graph.num_items,
-            score_dtype=score_dtype)
+        if mesh is not None:
+            _, top = topk_for_users(user_emb, item_emb, bu, max(Ks),
+                                    exclude_batch_rows=excl, mesh=mesh,
+                                    topk_method=topk,
+                                    score_dtype=score_dtype)
+            per_user, topk_items, logpop, selfinfo = _full_metrics_from_topk(
+                top, bu, eval_csr, item_pop, tuple(Ks), extended,
+                ctx.total_train, ctx.graph.num_items)
+        else:
+            per_user, topk_items, logpop, selfinfo = _full_batch(
+                user_emb, item_emb, bu, excl, eval_csr, item_pop, tuple(Ks),
+                extended, ctx.total_train, ctx.graph.num_items,
+                score_dtype=score_dtype)
         acc.add(per_user, n_valid, topk_items if extended else None, logpop,
                 selfinfo)
     return acc.results("full", ctx.graph.num_items, users, cred,

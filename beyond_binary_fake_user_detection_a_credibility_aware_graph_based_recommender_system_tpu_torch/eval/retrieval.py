@@ -2,11 +2,13 @@
 
 The production-facing counterpart of the full-catalog evaluator
 (reference lightgcn.py:459-509): dense dot-product scoring with optional
-seen-item exclusion, on one device.
+seen-item exclusion, on one device or row-sharded over a mesh's model axis
+with a distributed top-k merge (``parallel/sharded_topk.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -71,28 +73,40 @@ def mask_excluded(scores: torch.Tensor, excl: torch.Tensor,
     return scores
 
 
+@functools.lru_cache(maxsize=8)
+def _sharded_topk(mesh, num_items: int):
+    from ..parallel.sharded_topk import ShardedTopK
+    return ShardedTopK(mesh, num_items)
+
+
 def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
                    users: torch.Tensor, k: int,
                    exclude_rows: Optional[torch.Tensor] = None,
                    exclude_batch_rows: Optional[torch.Tensor] = None,
-                   mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   mesh=None, topk_method: str = "exact",
+                   score_dtype: str = "fp32"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores (B,k), item ids (B,k)), excluded items scored ``-inf``.
 
     ``exclude_rows``: (U, Pmax) padded exclusion table (pad = num_items);
     ``exclude_batch_rows``: pre-gathered (B, Pb) rows for THIS batch
-    (:func:`exclusion_rows_for_users`).  Ties may come back in another
-    order than ``lax.top_k``'s.
+    (:func:`exclusion_rows_for_users`).  With ``mesh`` (a ``DeviceMesh``),
+    scoring runs row-sharded over the model axis with a distributed top-k
+    merge (one ``ShardedTopK`` per mesh and catalogue);
+    ``topk_method`` / ``score_dtype`` are its per-shard modes, which the
+    single-device branch ignores.  Ties may come back in another order
+    than ``lax.top_k``'s.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded retrieval is not ported yet "
-            "(ROADMAP.md Queue 1, parallel/)")
     exact_fp32_matmul()
     u = user_emb[users]
     if exclude_batch_rows is not None:
         excl = exclude_batch_rows
     else:
         excl = exclude_rows[users] if exclude_rows is not None else None
+    if mesh is not None:
+        st = _sharded_topk(mesh, item_emb.shape[0])
+        return st.topk(u, st.pad_items(item_emb), k, exclude=excl,
+                       method=topk_method, score_dtype=score_dtype)
     scores = u @ item_emb.T                                   # (B, I)
     if excl is not None:
         scores = mask_excluded(scores, excl, float("-inf"))

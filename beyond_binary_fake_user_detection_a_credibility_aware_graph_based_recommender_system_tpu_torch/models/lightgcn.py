@@ -83,26 +83,33 @@ class LightGCN:
     """
 
     def __init__(self, cfg: RecConfig, graph: BipartiteGraph,
-                 cred: Optional[np.ndarray] = None, device="cuda"):
+                 cred: Optional[np.ndarray] = None, device="cuda",
+                 operator_factory=None):
+        """``operator_factory(edge_map) -> operator`` lets the same model run
+        on single-device ``SpmmOperator``s (default) or mesh-sharded ones
+        (``parallel/sharded_spmm.ShardedSpmmOperator`` via
+        ``functools.partial``)."""
         cfg.validate()
         self.cfg = cfg
         self.num_users = graph.num_users
         self.num_items = graph.num_items
         self.device = torch.device(device)
 
-        def op(em):
-            return SpmmOperator(em, self.device, backend=cfg.spmm_backend,
-                                precision=cfg.spmm_precision)
+        if operator_factory is None:
+            def operator_factory(em):
+                return SpmmOperator(em, self.device,
+                                    backend=cfg.spmm_backend,
+                                    precision=cfg.spmm_precision)
 
         maps = build_edge_maps(graph, cfg.weight_mode, cred)
         if cfg.propagation == "symmetric":
             assert isinstance(maps, EdgeMap)
-            self.joint_op = op(maps)
+            self.joint_op = operator_factory(maps)
             self.item_from_user = self.user_from_item = None
         else:
             item_from_user_map, user_from_item_map = maps
-            self.item_from_user = op(item_from_user_map)
-            self.user_from_item = op(user_from_item_map)
+            self.item_from_user = operator_factory(item_from_user_map)
+            self.user_from_item = operator_factory(user_from_item_map)
             self.joint_op = None
 
     # -- propagation ------------------------------------------------------
@@ -116,35 +123,75 @@ class LightGCN:
             return params["emb"]
         return torch.cat([params["user_emb"], params["item_emb"]], dim=0)
 
-    def _bipartite_step(self, u: torch.Tensor, i: torch.Tensor):
+    def _padded_chain(self):
+        """Mesh-sharded operators expose padded span layouts
+        (``parallel/sharded_spmm.py``); when the chain's layouts line up,
+        the whole K-layer propagation stays in padded row-sharded form and
+        converts dense<->padded once per table and call instead of once
+        per operator."""
+        if self.cfg.propagation == "symmetric":
+            op = self.joint_op
+            if getattr(op, "padded_chain", False) and \
+                    op.src_layout.equals(op.dst_layout):
+                return op
+            return None
+        a, b = self.item_from_user, self.user_from_item
+        if (getattr(a, "padded_chain", False)
+                and getattr(b, "padded_chain", False)
+                and a.dst_layout.equals(b.src_layout)
+                and b.dst_layout.equals(a.src_layout)):
+            return (a, b)
+        return None
+
+    def _bipartite_step(self, u: torch.Tensor, i: torch.Tensor,
+                        apply_ifu=None, apply_ufi=None):
+        apply_ifu = apply_ifu or self.item_from_user
+        apply_ufi = apply_ufi or self.user_from_item
         if self.cfg.propagation == "bipartite_sync":
             # Jacobi: both updates read layer k (lightgcn_cu.py:429-439)
-            return self.user_from_item(i), self.item_from_user(u)
+            return apply_ufi(i), apply_ifu(u)
         # gauss_seidel (lightgcn_cu_message.py:421-423)
-        i = self.item_from_user(u)
-        return self.user_from_item(i), i
+        i = apply_ifu(u)
+        return apply_ufi(i), i
 
     def propagate(self, params: Params) -> Tuple[torch.Tensor, torch.Tensor]:
         K = self.cfg.num_layers
         prop_dtype = self._prop_dtype()
+        chain = self._padded_chain()
         if self.cfg.propagation == "symmetric":
             x = self._joint_table(params).to(prop_dtype)
+            apply_j = self.joint_op
+            if chain is not None:
+                x = chain.src_layout.to_padded(x)
+                apply_j = chain.apply_padded
             acc = x.float()
             for _ in range(K):
-                x = self.joint_op(x)
+                x = apply_j(x)
                 acc = acc + x.float()
             final = acc / (K + 1)
+            if chain is not None:
+                final = chain.src_layout.from_padded(final)
             return final[:self.num_users], final[self.num_users:]
 
         u, i = ego_tables(params, self.num_users)
         u = u.to(prop_dtype)
         i = i.to(prop_dtype)
+        applies = ()
+        if chain is not None:
+            ifu, ufi = chain
+            u = ifu.src_layout.to_padded(u)
+            i = ufi.src_layout.to_padded(i)
+            applies = (ifu.apply_padded, ufi.apply_padded)
         acc_u, acc_i = u.float(), i.float()
         for _ in range(K):
-            u, i = self._bipartite_step(u, i)
+            u, i = self._bipartite_step(u, i, *applies)
             acc_u = acc_u + u.float()
             acc_i = acc_i + i.float()
-        return acc_u / (K + 1), acc_i / (K + 1)
+        acc_u, acc_i = acc_u / (K + 1), acc_i / (K + 1)
+        if chain is not None:
+            acc_u = ifu.src_layout.from_padded(acc_u)
+            acc_i = ufi.src_layout.from_padded(acc_i)
+        return acc_u, acc_i
 
     def propagate_rows(self, params: Params, user_rows: torch.Tensor,
                        item_rows: torch.Tensor,
@@ -159,6 +206,11 @@ class LightGCN:
         into the item rows, ``ops/gather.py``) give every layer's gathers
         the segment-sum backward; without them they are plain ``x[rows]``.
         """
+        if any(getattr(op, "padded_chain", False) for op in
+               (self.joint_op, self.item_from_user, self.user_from_item)):
+            raise NotImplementedError(
+                "propagate_rows on mesh-sharded operators (the sharded train "
+                "step) is ROADMAP.md Queue 1 item 11b")
         K = self.cfg.num_layers
         prop_dtype = self._prop_dtype()
         p_u, p_i = plans or (None, None)

@@ -20,8 +20,10 @@ One application (one call of :func:`segment_spmm`, counted once in
 :data:`KERNEL`'s ``launches``) is one CUDA launch when no row is long and
 two when one is: the row kernel (pieces first, then every row), and the
 reduction of the long rows' partials.  The row gathers' backward
-(``ops/gather.py``) runs the same kernel through :data:`GATHER_KERNEL`, which
-counts its applications apart from the operators' (:data:`KERNELS`).
+(``ops/gather.py``) runs the same kernel through :data:`GATHER_KERNEL`, and
+the local sums of the mesh-sharded operator (``parallel/sharded_spmm.py``)
+through :data:`SHARDED_KERNEL`; each counts its applications apart from the
+operators' (:data:`KERNELS`).
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_kernels/`` and loaded with ``ctypes`` (``ops/cuda_build.py``).
@@ -226,7 +228,8 @@ class SegmentSpmmKernel(CudaKernel):
 
 KERNEL = SegmentSpmmKernel()
 GATHER_KERNEL = SegmentSpmmKernel("gather_backward")
-KERNELS = (KERNEL, GATHER_KERNEL)
+SHARDED_KERNEL = SegmentSpmmKernel("sharded_spmm")
+KERNELS = (KERNEL, GATHER_KERNEL, SHARDED_KERNEL)
 
 
 def segment_spmm(indptr: torch.Tensor, src: torch.Tensor, w: torch.Tensor,

@@ -131,12 +131,26 @@ class FitResult:
 class RecTrainer:
     def __init__(self, cfg: RecConfig, graph: BipartiteGraph,
                  cred: Optional[np.ndarray] = None, device="cuda",
-                 verbose: bool = True):
+                 verbose: bool = True, operator_factory=None, mesh=None):
+        """``mesh``: a (data, model) ``DeviceMesh`` (``parallel/mesh.py``)
+        on ``device``.  The model then propagates through edge-sharded
+        operators (``parallel/sharded_spmm.py``, padded chain, mode
+        ``cfg.sharded_spmm_mode``) and full-catalogue evaluation ranks
+        through the distributed top-k; ``fit`` under a mesh is ROADMAP.md
+        Queue 1 item 11b.  ``operator_factory(edge_map)`` builds the
+        model's operators in place of either default."""
         cfg.validate()
         self.cfg = cfg
         self.graph = graph
         self.device = resolve_device(device)
         self.verbose = verbose
+        self.mesh = mesh
+        if mesh is not None and operator_factory is None:
+            import functools
+            from ..parallel.sharded_spmm import ShardedSpmmOperator
+            operator_factory = functools.partial(
+                ShardedSpmmOperator, mesh=mesh, mode=cfg.sharded_spmm_mode,
+                backend=cfg.spmm_backend, precision=cfg.spmm_precision)
 
         if cred is None and cfg.cred_csv_path:
             cred = load_credibility_vector(cfg.cred_csv_path, graph.num_users,
@@ -144,7 +158,8 @@ class RecTrainer:
         self.cred = cred if cred is not None else np.ones(
             graph.num_users, np.float32)
 
-        self.model = LightGCN(cfg, graph, self.cred, device=self.device)
+        self.model = LightGCN(cfg, graph, self.cred, device=self.device,
+                              operator_factory=operator_factory)
         self.ctx = EvalContext.build(graph, self.device,
                                      membership=cfg.membership)
 
@@ -318,7 +333,7 @@ class RecTrainer:
                                  Ks=cfg.Ks, batch=cfg.eval_batch,
                                  extended=extended, cred=self.cred,
                                  cred_group_pct=cfg.cred_group_pct,
-                                 topk=cfg.eval_topk,
+                                 mesh=self.mesh, topk=cfg.eval_topk,
                                  score_dtype=cfg.eval_score_dtype)
         if gen is None:
             gen = torch.Generator(device=self.device)
@@ -332,6 +347,11 @@ class RecTrainer:
     def fit(self, epochs: Optional[int] = None, seed: Optional[int] = None,
             checkpointer: Optional[TrainCheckpointer] = None,
             resume: bool = False) -> FitResult:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "fit under a mesh (row-sharded tables and Adam moments, "
+                "sharded batches) is ROADMAP.md Queue 1 item 11b; a mesh "
+                "serves only (evaluate)")
         cfg = self.cfg
         dev = self.device
         epochs = cfg.epochs if epochs is None else epochs

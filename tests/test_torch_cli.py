@@ -120,7 +120,8 @@ def test_default_device_is_cuda(saved):
 def test_training_commands_not_registered():
     """Both training commands are registered now: train-cred (Stage A) and
     train-rec parse with the JAX command's flags and default to the card;
-    train-cred's --mesh raises, as train-rec's does."""
+    train-cred's --mesh raises (Stage A under a mesh is ROADMAP.md Queue 1
+    item 11c), as train-rec's does (11b)."""
     ap = t_cli.build_parser()
     args = ap.parse_args(["train-cred", "--jsonl", "r.jsonl", "--out", "d",
                           "--plots", "--checkpoint", "--resume",
@@ -132,7 +133,7 @@ def test_training_commands_not_registered():
     assert args.overrides == ["epochs=2", "trainer_mode=full_graph"]
     with pytest.raises(SystemExit):
         ap.parse_args(["train-cred", "--out", "d"])      # --jsonl required
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
         t_cli.run(["train-cred", "--jsonl", "r.jsonl", "--out", "d",
                    "--mesh", "all", "--device", "cpu"])
     args = ap.parse_args(["train-rec", "--graph", "g.npz"])
@@ -267,16 +268,58 @@ def test_train_rec_writes_outputs_and_jax_evaluate_agrees(saved, tmp_path,
 
 
 def test_train_rec_mesh_not_supported(saved):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
         t_cli.run(["train-rec", "--graph", str(saved / "graph.npz"),
                    "--mesh", "all", "--device", "cpu"])
 
 
-def test_evaluate_mesh_not_supported(saved):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+def test_evaluate_mesh_one_matches_single(saved, capsys):
+    """``evaluate --mesh 1 --device cpu`` (a world of one over gloo, in a
+    subprocess so that no process group outlives the test) prints the
+    metric block of ``evaluate --device cpu`` and of the JAX CLI's
+    ``evaluate --mesh 2``, its JSON within 1e-6."""
+    j_cli.main(["merge-user-ids", "--npy", str(saved / "cred.npy"),
+                "--graph", str(saved / "graph.npz"),
+                "--out", str(saved / "cred.csv")])
+    args = ["evaluate", "--graph", str(saved / "graph.npz"),
+            "--params", str(saved / "best_model.npz"),
+            "--preset", "cu_message", "--cred", str(saved / "cred.csv"),
+            "emb_dim=8", "eval_mode=full", "extended_metrics=true"]
+    capsys.readouterr()
+    j_cli.main(args + ["--mesh", "2"])
+    j_out = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 2}" in j_out
+    t_cli.run(args + ["--device", "cpu"])
+    single = capsys.readouterr().out
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PORT_PKG}.cli", *args, "--mesh", "1",
+         "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
+        timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    mesh_out = proc.stdout
+    assert "mesh: {'data': 1, 'model': 1}" in mesh_out
+    assert len(_metric_lines(mesh_out)) == 3
+    assert _metric_lines(mesh_out) == _metric_lines(single) == \
+        _metric_lines(j_out)
+    j_json = json.loads(j_out.strip().splitlines()[-1])
+    t_json = json.loads(mesh_out.strip().splitlines()[-1])
+    for K in j_json:
+        for m in ("precision", "recall", "ndcg", "item_coverage",
+                  "cred_utility", "high_cred_recall", "low_cred_recall"):
+            assert t_json[K][m] == pytest.approx(j_json[K][m], abs=1e-6)
+
+
+def test_evaluate_mesh_n_without_launcher_raises(saved, monkeypatch):
+    """--mesh 2 in one process (no torchrun environment) names the
+    launcher and creates no process group."""
+    import torch.distributed as dist
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         t_cli.run(["evaluate", "--graph", str(saved / "graph.npz"),
                    "--params", str(saved / "best_model.npz"),
-                   "--mesh", "all", "--device", "cpu"])
+                   "--mesh", "2", "--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 def test_port_imports_without_jax():

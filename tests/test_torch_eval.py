@@ -140,10 +140,16 @@ def test_topk_for_users_matches_jax(small_graph, excl):
 
 
 def test_topk_for_users_mesh_not_ported(small_graph):
+    """The mesh branch is ported (tests/test_torch_sharded_topk.py runs it
+    on gloo ranks); what is no mesh, or a model axis with no process group,
+    is refused rather than ranked on one device."""
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.parallel.mesh import ModelAxis
     ue, ie = _emb(small_graph)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ret.topk_for_users(torch.as_tensor(ue), torch.as_tensor(ie),
-                             torch.arange(3), 5, mesh=object())
+    args = (torch.as_tensor(ue), torch.as_tensor(ie), torch.arange(3), 5)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        t_ret.topk_for_users(*args, mesh=object())
+    with pytest.raises(RuntimeError, match="no process group"):
+        t_ret.topk_for_users(*args, mesh=ModelAxis(size=1))
 
 
 def test_format_metrics_block_identical():
