@@ -3,25 +3,31 @@
     python -m beyond_binary_..._tpu_torch.cli build-graph --jsonl R.jsonl --out D/
     python -m ..._tpu_torch.cli train-cred --jsonl R.jsonl --out D/
                                            [--plots] [--checkpoint [--resume]]
-                                           [k=v ...]
+                                           [--mesh N] [k=v ...]
     python -m ..._tpu_torch.cli merge-user-ids --npy cred.npy --graph D/graph.npz
                                                --out D/cred.csv
     python -m ..._tpu_torch.cli train-rec --graph D/graph.npz --preset cu_message
                                           [--cred D/cred.csv] [--out D/rec]
-                                          [--checkpoint [--resume]] [k=v ...]
+                                          [--checkpoint [--resume]]
+                                          [--mesh N] [k=v ...]
     python -m ..._tpu_torch.cli evaluate --graph D/graph.npz --params best.npz
                                          --preset cu_message [--mesh N] [k=v ...]
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs on the
-CPU).  ``evaluate --mesh N`` serves on a (data, model) mesh of N processes,
-one a card (NCCL; gloo with ``--device cpu``): ``--mesh 1`` (or ``all``
-without a launcher) in one process, N > 1 under
-``torchrun --nproc-per-node N -m ..._tpu_torch.cli evaluate --mesh N ...``.
+CPU).  ``train-rec``, ``train-cred`` and ``evaluate`` take ``--mesh N``: they
+then run on a (data, model) mesh of N processes, one a card (NCCL; gloo with
+``--device cpu``): ``--mesh 1`` (or ``all`` without a launcher) in one
+process, N > 1 under
+``torchrun --nproc-per-node N -m ..._tpu_torch.cli train-rec --mesh N ...``.
+Training shards the tables, Adam moments and batches (``train-rec``) or runs
+Stage A's forward on the edge-sharded operators (``train-cred``); rank 0
+alone prints and writes the outputs.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from pathlib import Path
 
@@ -36,35 +42,45 @@ def _add_device(p):
                    help="torch device to run on (default cuda)")
 
 
-def _make_mesh(spec, device):
-    """``--mesh`` ('all' or a process count) -> ``(mesh, device, owned)``:
-    the (data, model) ``DeviceMesh``, this rank's device, and whether this
-    call created the process group (and so destroys it)."""
+@contextlib.contextmanager
+def _meshed(args):
+    """``(mesh, device, rank0)`` for the command's ``--mesh`` ('all' or a
+    process count; no mesh without it): the (data, model) ``DeviceMesh``,
+    this rank's device, and whether this is rank 0.  A process group this
+    creates (a world of one) is destroyed on the way out."""
     import torch
     import torch.distributed as dist
     from ..parallel import distributed
     from ..parallel.mesh import make_mesh
     from ..utils.device import resolve_device
 
+    if not args.mesh:
+        yield None, args.device, True
+        return
     world = distributed.launched_world_size()
-    n = world if spec == "all" else int(spec)
+    n = world if args.mesh == "all" else int(args.mesh)
     if n != world:
         if distributed.launched():
             raise ValueError(f"--mesh {n}, but the launcher started {world} "
                              "processes")
         raise RuntimeError(
             f"--mesh {n} needs {n} processes, one a device: launch with "
-            f"torchrun --nproc-per-node {n} -m {__package__} evaluate "
+            f"torchrun --nproc-per-node {n} -m {__package__} {args.cmd} "
             f"--mesh {n} ...")
-    dev = resolve_device(distributed.rank_device(device))
+    dev = resolve_device(distributed.rank_device(args.device))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     owned = not dist.is_initialized()
     distributed.initialize(device=dev)
-    mesh = make_mesh(n, device_type=dev.type)
-    if dist.get_rank() == 0:
-        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
-    return mesh, dev, owned
+    try:
+        mesh = make_mesh(n, device_type=dev.type)
+        rank0 = dist.get_rank() == 0
+        if rank0:
+            print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        yield mesh, dev, rank0
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def cmd_build_graph(args):
@@ -98,31 +114,31 @@ def cmd_train_cred(args):
     from ..utils.config import CredConfig, IngestConfig
     from ..utils.device import resolve_device
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the port trains on one device; a sharded Stage-A "
-            "forward is ROADMAP.md Queue 1 item 11c (parallel/)")
-    device = resolve_device(args.device)
     ccfg = CredConfig().with_overrides(args.overrides)
-    table = ingest_jsonl(args.jsonl, IngestConfig(jsonl_path=args.jsonl),
-                         collect_token_hashes=(ccfg.feature_set == "v1"))
-    feats = compute_user_features(table, ccfg)
-    hg = build_heterograph(table, feats,
-                           graph_feature_set=ccfg.graph_feature_set)
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    # reference intermediate artifacts (main.py steps 1/3)
-    save_labels_csv(out / "user_labels.csv", table, feats.labels)
-    save_features_csv(out / "user_features.csv", table, feats)
-    hg.save_npz(out / "graph_hetero.npz")
-    if args.plots:
-        from ..eval.report import plot_feature_distributions
-        plot_feature_distributions(feats, out / "plots")
-    trainer = CredTrainer(hg, ccfg, device=device)
-    ck = TrainCheckpointer(out / "cred_ckpt", keep=args.ckpt_keep,
-                           every=args.ckpt_every) if args.checkpoint else None
-    result = trainer.fit(checkpointer=ck, resume=args.resume)
-    trainer.export(result, out)
+    with _meshed(args) as (mesh, device, rank0):
+        device = resolve_device(device)
+        table = ingest_jsonl(args.jsonl, IngestConfig(jsonl_path=args.jsonl),
+                             collect_token_hashes=(ccfg.feature_set == "v1"))
+        feats = compute_user_features(table, ccfg)
+        hg = build_heterograph(table, feats,
+                               graph_feature_set=ccfg.graph_feature_set)
+        out = Path(args.out)
+        if rank0:
+            out.mkdir(parents=True, exist_ok=True)
+            # reference intermediate artifacts (main.py steps 1/3)
+            save_labels_csv(out / "user_labels.csv", table, feats.labels)
+            save_features_csv(out / "user_features.csv", table, feats)
+            hg.save_npz(out / "graph_hetero.npz")
+            if args.plots:
+                from ..eval.report import plot_feature_distributions
+                plot_feature_distributions(feats, out / "plots")
+        trainer = CredTrainer(hg, ccfg, device=device, mesh=mesh)
+        ck = TrainCheckpointer(out / "cred_ckpt", keep=args.ckpt_keep,
+                               every=args.ckpt_every) if args.checkpoint \
+            else None
+        result = trainer.fit(checkpointer=ck, resume=args.resume)
+        if rank0:
+            trainer.export(result, out)
     return result
 
 
@@ -147,23 +163,21 @@ def cmd_train_rec(args):
     from ..train.checkpoint import TrainCheckpointer, save_params_npz
     from ..train.trainer import RecTrainer
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the port trains on one device; the sharded train step "
-            "is ROADMAP.md Queue 1 item 11b (parallel/)")
     cfg = get_preset(args.preset).with_overrides(args.overrides)
     if args.cred:
         cfg = cfg.replace(cred_csv_path=args.cred)
     if args.out:
         cfg = cfg.replace(out_dir=args.out)
-    graph = BipartiteGraph.load_npz(args.graph)
-    print(f"Loaded edges. {graph.summary()}")
-    trainer = RecTrainer(cfg, graph, device=args.device)
-    ck = TrainCheckpointer(Path(args.out) / "ckpt",
-                           keep=args.ckpt_keep, every=args.ckpt_every) if (
-        args.out and args.checkpoint) else None
-    result = trainer.fit(checkpointer=ck, resume=args.resume)
-    if args.out:
+    with _meshed(args) as (mesh, device, rank0):
+        graph = BipartiteGraph.load_npz(args.graph)
+        if rank0:
+            print(f"Loaded edges. {graph.summary()}")
+        trainer = RecTrainer(cfg, graph, device=device, mesh=mesh)
+        ck = TrainCheckpointer(Path(args.out) / "ckpt",
+                               keep=args.ckpt_keep, every=args.ckpt_every) if (
+            args.out and args.checkpoint) else None
+        result = trainer.fit(checkpointer=ck, resume=args.resume)
+    if args.out and rank0:
         save_params_npz(Path(args.out) / "best_model.npz", result.best_params)
         with open(Path(args.out) / "test_metrics.json", "w") as f:
             json.dump({str(k): v for k, v in result.test_metrics.items()}, f,
@@ -174,7 +188,6 @@ def cmd_train_rec(args):
 def cmd_evaluate(args):
     """Prints the metric block and a JSON line (under a mesh: rank 0 only);
     returns the metrics (every rank the same)."""
-    import torch.distributed as dist
     from ..configs.presets import get_preset
     from ..graph.build import BipartiteGraph
     from ..train.checkpoint import load_params_npz
@@ -183,20 +196,14 @@ def cmd_evaluate(args):
     cfg = get_preset(args.preset).with_overrides(args.overrides)
     if args.cred:
         cfg = cfg.replace(cred_csv_path=args.cred)
-    mesh, device, owned = (_make_mesh(args.mesh, args.device) if args.mesh
-                           else (None, args.device, False))
-    try:
+    with _meshed(args) as (mesh, device, rank0):
         graph = BipartiteGraph.load_npz(args.graph)
         trainer = RecTrainer(cfg, graph, device=device, mesh=mesh)
         params = load_params_npz(args.params, device=trainer.device)
         res = trainer.evaluate(params, args.split)
-        if mesh is None or dist.get_rank() == 0:
-            print(format_metrics_block(args.split.upper(), res))
-            print(json.dumps({str(k): v for k, v in res.items()},
-                             default=float))
-    finally:
-        if owned and dist.is_initialized():
-            dist.destroy_process_group()
+    if rank0:
+        print(format_metrics_block(args.split.upper(), res))
+        print(json.dumps({str(k): v for k, v in res.items()}, default=float))
     return res
 
 
@@ -222,7 +229,9 @@ def build_parser():
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest OUT/cred_ckpt state")
     p.add_argument("--mesh", default=None,
-                   help="not supported yet: training runs on one device")
+                   help="train on a (data, model) mesh of N processes "
+                        "('all': the launcher's world); N > 1 under "
+                        "torchrun --nproc-per-node N")
     p.add_argument("--ckpt-keep", type=int, default=3)
     p.add_argument("--ckpt-every", type=int, default=1)
     _add_device(p)
@@ -248,7 +257,9 @@ def build_parser():
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest OUT/ckpt state")
     p.add_argument("--mesh", default=None,
-                   help="not supported yet: training runs on one device")
+                   help="train on a (data, model) mesh of N processes "
+                        "('all': the launcher's world); N > 1 under "
+                        "torchrun --nproc-per-node N")
     p.add_argument("--ckpt-keep", type=int, default=3)
     p.add_argument("--ckpt-every", type=int, default=1)
     _add_device(p)

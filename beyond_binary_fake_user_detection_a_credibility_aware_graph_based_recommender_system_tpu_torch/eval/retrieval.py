@@ -8,7 +8,6 @@ with a distributed top-k merge (``parallel/sharded_topk.py``).
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -73,12 +72,6 @@ def mask_excluded(scores: torch.Tensor, excl: torch.Tensor,
     return scores
 
 
-@functools.lru_cache(maxsize=8)
-def _sharded_topk(mesh, num_items: int):
-    from ..parallel.sharded_topk import ShardedTopK
-    return ShardedTopK(mesh, num_items)
-
-
 def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
                    users: torch.Tensor, k: int,
                    exclude_rows: Optional[torch.Tensor] = None,
@@ -92,7 +85,9 @@ def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
     ``exclude_batch_rows``: pre-gathered (B, Pb) rows for THIS batch
     (:func:`exclusion_rows_for_users`).  With ``mesh`` (a ``DeviceMesh``),
     scoring runs row-sharded over the model axis with a distributed top-k
-    merge (one ``ShardedTopK`` per mesh and catalogue);
+    merge (a ``ShardedTopK`` on the mesh's live model group, made for the
+    call: it holds no more than the group and the block size, and a cached
+    one could outlive its group when a process makes meshes in turn);
     ``topk_method`` / ``score_dtype`` are its per-shard modes, which the
     single-device branch ignores.  Ties may come back in another order
     than ``lax.top_k``'s.
@@ -104,7 +99,8 @@ def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
     else:
         excl = exclude_rows[users] if exclude_rows is not None else None
     if mesh is not None:
-        st = _sharded_topk(mesh, item_emb.shape[0])
+        from ..parallel.sharded_topk import ShardedTopK
+        st = ShardedTopK(mesh, item_emb.shape[0])
         return st.topk(u, st.pad_items(item_emb), k, exclude=excl,
                        method=topk_method, score_dtype=score_dtype)
     scores = u @ item_emb.T                                   # (B, I)

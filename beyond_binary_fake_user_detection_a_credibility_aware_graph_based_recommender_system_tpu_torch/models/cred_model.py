@@ -18,9 +18,12 @@ operators, built once on the host (the weights do not depend on the
 parameters).  Gradients flow through the operators' ``_SpmmFn``, whose
 backward is the same SpMM kernel on the transpose, so one view's forward
 and backward are 2 + 2 kernel applications.  Each view also keeps the plans
-of the smoothness term's two gathers (``ops/gather.py``): ``h_u2[src]`` has
-the rows of ``user_from_item.fwd`` and ``h_i1[dst]`` those of
-``item_from_user.fwd``, whose stable sorts are the gathers' edge orders.
+of the smoothness term's two gathers (``ops/gather.py``), ``h_u2[src]`` and
+``h_i1[dst]``, built from the edges' ids themselves, so they hold for any
+operators (on one device they equal the plans of the default operators'
+forward CSRs).  ``operator_factory`` puts other operators in place of the
+default ones: the mesh's edge-sharded operators
+(``parallel/sharded_spmm.py``), as the JAX package's does.
 
 Parameters are a ``Dict[str, Tensor]`` of ``(fan_in, fan_out)`` weights and
 ``(fan_out,)`` biases, as in the JAX package, so a layer is ``x @ W + b``
@@ -37,7 +40,7 @@ import torch
 
 from ..graph.hetero import HeteroGraph
 from ..graph.operators import EdgeMap
-from ..ops.gather import GatherPlan, plan_from_direction
+from ..ops.gather import GatherPlan, gather_plans
 from ..ops.spmm import SpmmOperator
 from ..utils.config import CredConfig
 
@@ -103,9 +106,8 @@ class CredView:
     w_u2i_norm: torch.Tensor          # (E,) fp32 normalized weights
     src: torch.Tensor                 # (E,) int64 user per edge
     dst: torch.Tensor                 # (E,) int64 item per edge
-    # the gather plans of h_u2[src] and h_i1[dst] (None with a custom
-    # operator_factory)
-    smooth_plans: Optional[Tuple[GatherPlan, GatherPlan]] = None
+    # the gather plans of h_u2[src] and h_i1[dst]
+    smooth_plans: Tuple[GatherPlan, GatherPlan]
 
 
 def build_cred_view(hg: HeteroGraph, cfg: CredConfig, view: Optional[str],
@@ -115,7 +117,7 @@ def build_cred_view(hg: HeteroGraph, cfg: CredConfig, view: Optional[str],
     directions (main.py:680-688), in float64 on the host as the JAX package
     does.  The operators are ``SpmmOperator(edge_map, device, backend)``
     unless ``operator_factory(edge_map)`` builds them; the smoothness
-    gathers' plans come from the default operators' forward CSRs."""
+    gathers' plans come from the edges' ids (``ops/gather.gather_plans``)."""
     u = hg.edges[0].astype(np.int64)
     i = hg.edges[1].astype(np.int64)
     w = ewa_raw_weights(hg.edge_attr, cfg.beta, cfg.gamma)
@@ -129,8 +131,7 @@ def build_cred_view(hg: HeteroGraph, cfg: CredConfig, view: Optional[str],
     np.add.at(denom_u, u, w)
     w_i2u = (w / (denom_u[u] + 1e-12)).astype(np.float32)
 
-    custom = operator_factory is not None
-    if not custom:
+    if operator_factory is None:
         def operator_factory(em):
             return SpmmOperator(em, device, backend=backend)
 
@@ -140,23 +141,23 @@ def build_cred_view(hg: HeteroGraph, cfg: CredConfig, view: Optional[str],
     user_from_item = operator_factory(EdgeMap(
         src=i.astype(np.int32), dst=u.astype(np.int32), w=w_i2u,
         num_src=hg.num_items, num_dst=hg.num_users))
+    src = torch.as_tensor(u, device=device)
+    dst = torch.as_tensor(i, device=device)
     return CredView(
         item_from_user=item_from_user, user_from_item=user_from_item,
-        w_u2i_norm=torch.as_tensor(w_u2i, device=device),
-        src=torch.as_tensor(u, device=device),
-        dst=torch.as_tensor(i, device=device),
-        smooth_plans=None if custom else (
-            plan_from_direction(user_from_item.fwd),
-            plan_from_direction(item_from_user.fwd)),
+        w_u2i_norm=torch.as_tensor(w_u2i, device=device), src=src, dst=dst,
+        smooth_plans=(gather_plans(src[None], hg.num_users)[0],
+                      gather_plans(dst[None], hg.num_items)[0]),
     )
 
 
 class CredModel:
     """Full-graph CredModel over the three precomputed views (``None``,
-    "early", "late") on ``device``."""
+    "early", "late") on ``device``; ``operator_factory(edge_map)`` builds
+    the views' operators in place of ``SpmmOperator``."""
 
     def __init__(self, hg: HeteroGraph, cfg: Optional[CredConfig] = None,
-                 device="cuda", backend: str = "auto"):
+                 device="cuda", backend: str = "auto", operator_factory=None):
         self.cfg = cfg or CredConfig()
         self.hg = hg
         self.device = torch.device(device)
@@ -167,7 +168,8 @@ class CredModel:
         self.item_x = torch.as_tensor(np.nan_to_num(hg.item_x, nan=0.0),
                                       device=self.device)
         self.views = {
-            v: build_cred_view(hg, self.cfg, v, self.device, backend)
+            v: build_cred_view(hg, self.cfg, v, self.device, backend,
+                               operator_factory)
             for v in (None, "early", "late")
         }
 

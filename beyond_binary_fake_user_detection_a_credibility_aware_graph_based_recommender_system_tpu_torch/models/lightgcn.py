@@ -205,16 +205,20 @@ class LightGCN:
         ``plans`` (of ``user_rows`` into the user rows and of ``item_rows``
         into the item rows, ``ops/gather.py``) give every layer's gathers
         the segment-sum backward; without them they are plain ``x[rows]``.
+
+        On mesh-sharded operators whose span layouts chain
+        (:meth:`_padded_chain`) the layers stay in padded form, and each
+        layer's rows are read at their slots of the whole padded table
+        (``SpanLayout.rows_of``: row -> slot through ``fwd``, the JAX
+        package's ``_slot``); ``plans`` do not apply there.  The sharded
+        train step does not come here: it combines whole tables, as the JAX
+        package's mesh path does.
         """
-        if any(getattr(op, "padded_chain", False) for op in
-               (self.joint_op, self.item_from_user, self.user_from_item)):
-            raise NotImplementedError(
-                "propagate_rows on mesh-sharded operators (the sharded train "
-                "step) is ROADMAP.md Queue 1 item 11b")
         K = self.cfg.num_layers
         prop_dtype = self._prop_dtype()
         p_u, p_i = plans or (None, None)
         bk = self.cfg.spmm_backend
+        chain = self._padded_chain()
 
         def rows(u, i):
             return (gather_rows(u, user_rows, p_u, bk).float(),
@@ -223,20 +227,43 @@ class LightGCN:
         U = self.num_users
         if self.cfg.propagation == "symmetric":
             x = self._joint_table(params).to(prop_dtype)
-            au, ai = rows(x[:U], x[U:])
+            apply_j = self.joint_op
+            if chain is not None:
+                lay = chain.src_layout
+                x = lay.to_padded(x)
+                apply_j = chain.apply_padded
+                ids = torch.cat([user_rows, item_rows + U])
+
+                def rows_j(x):
+                    r = lay.rows_of(x, ids).float()
+                    return r[:user_rows.numel()], r[user_rows.numel():]
+            else:
+                def rows_j(x):
+                    return rows(x[:U], x[U:])
+            au, ai = rows_j(x)
             for _ in range(K):
-                x = self.joint_op(x)
-                ru, ri = rows(x[:U], x[U:])
+                x = apply_j(x)
+                ru, ri = rows_j(x)
                 au, ai = au + ru, ai + ri
             return au / (K + 1), ai / (K + 1)
 
         u, i = ego_tables(params, U)
         u = u.to(prop_dtype)
         i = i.to(prop_dtype)
-        au, ai = rows(u, i)
+        applies, read = (), rows
+        if chain is not None:
+            ifu, ufi = chain
+            u = ifu.src_layout.to_padded(u)
+            i = ufi.src_layout.to_padded(i)
+            applies = (ifu.apply_padded, ufi.apply_padded)
+
+            def read(u, i):
+                return (ifu.src_layout.rows_of(u, user_rows).float(),
+                        ufi.src_layout.rows_of(i, item_rows).float())
+        au, ai = read(u, i)
         for _ in range(K):
-            u, i = self._bipartite_step(u, i)
-            ru, ri = rows(u, i)
+            u, i = self._bipartite_step(u, i, *applies)
+            ru, ri = read(u, i)
             au, ai = au + ru, ai + ri
         return au / (K + 1), ai / (K + 1)
 

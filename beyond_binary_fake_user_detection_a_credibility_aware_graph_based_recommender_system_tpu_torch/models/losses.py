@@ -13,7 +13,10 @@ Stage A:
   * temporal-contrastive InfoNCE, tau=0.2                   main.py:653-658
 
 Every loss takes a validity mask, so fixed-shape padded batches reproduce
-the reference's variable-length final batch exactly (masked mean).
+the reference's variable-length final batch exactly (masked mean).  Stage
+B's take ``count`` too: the mask count of the whole batch when ``mask`` is
+one data replica's columns of it (``parallel/sharding.py``), so the replicas'
+shares sum to the masked mean over the whole batch.
 """
 
 from __future__ import annotations
@@ -25,34 +28,46 @@ import torch
 from ..ops.gather import GatherPlan, gather_rows
 
 
-def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
-    if mask is None:
-        return x.mean()
-    m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+Count = Optional[torch.Tensor]
+
+
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor],
+                 count: Count = None) -> torch.Tensor:
+    """The masked sum of ``x`` over ``count`` (default: ``mask``'s own
+    count, or the plain mean without a mask), at least 1."""
+    if count is None:
+        if mask is None:
+            return x.mean()
+        count = mask.to(x.dtype).sum()
+    if mask is not None:
+        x = x * mask.to(x.dtype)
+    return x.sum() / count.to(x.dtype).clamp(min=1.0)
 
 
 def bpr_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor,
-             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             mask: Optional[torch.Tensor] = None,
+             count: Count = None) -> torch.Tensor:
     return _masked_mean(
-        -torch.log(torch.sigmoid(pos_scores - neg_scores) + 1e-12), mask)
+        -torch.log(torch.sigmoid(pos_scores - neg_scores) + 1e-12), mask,
+        count)
 
 
 def ego_l2(ego_u: torch.Tensor, ego_p: torch.Tensor, ego_n: torch.Tensor,
-           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+           mask: Optional[torch.Tensor] = None,
+           count: Count = None) -> torch.Tensor:
     """Mean over batch of summed squared ego-embedding norms
     (lightgcn.py:341-348 — layer-0 embeddings only, NOT propagated ones)."""
     reg = ((ego_u ** 2).sum(-1) + (ego_p ** 2).sum(-1)
            + (ego_n ** 2).sum(-1))
-    return _masked_mean(reg, mask)
+    return _masked_mean(reg, mask, count)
 
 
 def fairness_loss(pop_norm_pos: torch.Tensor, pos_scores: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  count: Count = None) -> torch.Tensor:
     """Eq 3.27 over observed positives (lightgcn_cu.py:639-641);
     pop_norm = deg_i / max(deg) (lightgcn_cu.py:583-584)."""
-    return _masked_mean(pop_norm_pos * pos_scores, mask)
+    return _masked_mean(pop_norm_pos * pos_scores, mask, count)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """The (data, model) device mesh on ``torch.distributed``.
 
-Tables are row-sharded over ``model``; ``data`` holds replicas (each
-evaluates the same users in this slice; sharded training batches are
-ROADMAP.md Queue 1 item 11b).  A :class:`ModelAxis` is the model axis as one
-rank sees it: its size, the rank's coordinate, the group and the device.
-The host planning of the sharded operators needs only the first two, so
-the tests build plans for any size without a process group.
+Tables are row-sharded over ``model``; ``data`` holds replicas, which
+evaluate the same users and train on their own columns of each batch
+(``parallel/sharding.py``).  A :class:`ModelAxis` (and a :class:`DataAxis`)
+is that axis as one rank sees it: its size, the rank's coordinate, the group
+and the device.  The host planning of the sharded operators needs only the
+first two, so the tests build plans for any size without a process group.
+
+A table of N rows is row-sharded in P blocks of ``ceil(N/P)`` rows: it is
+padded with zero rows to :func:`padded_row_count` first (:func:`pad_rows`),
+as the JAX package's trainer pads (``JAX: train/trainer.py:138-157``).
 """
 
 from __future__ import annotations
@@ -75,21 +79,48 @@ class ModelAxis:
     device: torch.device = torch.device("cpu")
 
 
+@dataclass(frozen=True)
+class DataAxis:
+    """The data axis as one rank sees it: the replicas that train on the
+    other columns of each batch, and reduce the gradients with this rank."""
+    size: int
+    coord: int = 0
+    group: Optional[dist.ProcessGroup] = None
+    device: torch.device = torch.device("cpu")
+
+
+def _device(mesh: DeviceMesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _check_mesh(mesh) -> None:
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"expected a DeviceMesh (parallel/mesh.make_mesh) or "
+                        f"a ModelAxis, got {type(mesh).__name__}")
+
+
 def model_axis(mesh) -> ModelAxis:
     """``mesh`` (a ``DeviceMesh``, or already a :class:`ModelAxis`) as this
     rank's :class:`ModelAxis`."""
     if isinstance(mesh, ModelAxis):
         return mesh
-    if not isinstance(mesh, DeviceMesh):
-        raise TypeError(f"expected a DeviceMesh (parallel/mesh.make_mesh) or "
-                        f"a ModelAxis, got {type(mesh).__name__}")
-    if mesh.device_type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        device = torch.device(mesh.device_type)
+    _check_mesh(mesh)
     return ModelAxis(size=mesh[MODEL_AXIS].size(),
                      coord=mesh.get_local_rank(MODEL_AXIS),
-                     group=model_group(mesh), device=device)
+                     group=model_group(mesh), device=_device(mesh))
+
+
+def data_axis(mesh) -> DataAxis:
+    """``mesh`` (a ``DeviceMesh``) as this rank's :class:`DataAxis`; a
+    :class:`ModelAxis` (host planning) has one replica and no group."""
+    if isinstance(mesh, ModelAxis):
+        return DataAxis(size=1, device=mesh.device)
+    _check_mesh(mesh)
+    return DataAxis(size=mesh[DATA_AXIS].size(),
+                    coord=mesh.get_local_rank(DATA_AXIS),
+                    group=data_group(mesh), device=_device(mesh))
 
 
 def model_group(mesh: DeviceMesh) -> dist.ProcessGroup:
@@ -98,15 +129,33 @@ def model_group(mesh: DeviceMesh) -> dist.ProcessGroup:
 
 def data_group(mesh: DeviceMesh) -> dist.ProcessGroup:
     """The group of this rank's replicas (the sharded train step's batch
-    axis, ROADMAP.md Queue 1 item 11b)."""
+    axis)."""
     return mesh.get_group(DATA_AXIS)
+
+
+def padded_row_count(rows: int, size: int) -> int:
+    """``ceil(rows / size) * size``: the rows of a table row-sharded in
+    ``size`` equal blocks."""
+    return -(-rows // size) * size
+
+
+def pad_rows(table: torch.Tensor, size: int) -> torch.Tensor:
+    """``table`` with zero rows appended up to :func:`padded_row_count`
+    (``table`` itself when no row is missing)."""
+    rows = table.shape[0]
+    padded = padded_row_count(rows, size)
+    if padded == rows:
+        return table
+    return torch.cat([table, table.new_zeros((padded - rows,)
+                                             + tuple(table.shape[1:]))])
 
 
 def row_shard(table: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     """This rank's rows of a table row-sharded over the model axis (the
-    rows split in ``axis.size`` equal blocks, in coordinate order)."""
+    rows split in ``axis.size`` equal blocks, in coordinate order; pad a
+    table whose rows do not split with :func:`pad_rows` first)."""
     if table.shape[0] % axis.size:
         raise ValueError(f"{table.shape[0]} rows do not split in "
-                         f"{axis.size} equal shards")
+                         f"{axis.size} equal shards (pad_rows first)")
     rows = table.shape[0] // axis.size
     return table[axis.coord * rows:(axis.coord + 1) * rows]

@@ -36,8 +36,10 @@ in padded form (``models/lightgcn.py``).
 
 Autograd contract: :meth:`SpanLayout.from_padded` returns the exact-row
 table on every rank, and its backward takes the rank's slots of a
-*replicated* cotangent: the loss must be computed identically on every
-rank.  Reducing cotangents over the data axis is ROADMAP.md Queue 1 item 11b.
+cotangent *replicated within the model group*: every rank of one model group
+must compute the same loss (on the same batch columns).  Data replicas may
+compute different losses; the train step reduces their gradients over the
+data axis on the parameter blocks (``parallel/sharding.py``), not here.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ import torch.distributed as dist
 from ..graph.operators import EdgeMap
 from ..ops.spmm import _MSG_DTYPES, CsrDirection, _SpmmFn
 from ..ops.spmm_cuda import SHARDED_KERNEL, segment_spmm
-from .mesh import ModelAxis, model_axis
+from .mesh import ModelAxis, model_axis, row_shard
 
 
 def _all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -68,6 +70,29 @@ def _need_group(axis: ModelAxis) -> None:
     if axis.group is None:
         raise RuntimeError("this ModelAxis has no process group: it plans on "
                            "the host only; build the operator on a mesh")
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, axis):
+        _need_group(axis)
+        ctx.axis = axis
+        full = block.new_empty((axis.size * block.shape[0],)
+                               + tuple(block.shape[1:]))
+        _all_gather_into(full, block.contiguous(), axis.group)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        return row_shard(g, ctx.axis), None
+
+
+def all_gather_rows(block: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Every model rank's ``block`` stacked in coordinate order, on every
+    rank of the model group.  Its backward is this rank's block of the
+    cotangent, with no collective: right when the cotangent is replicated
+    within the model group (the contract below)."""
+    return _AllGatherRows.apply(block, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +173,16 @@ class SpanLayout:
         rank of the model group."""
         return _FromPadded.apply(p, self)
 
+    def rows_of(self, p: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """The rows ``rows`` (global row ids, on the layout's device) of the
+        table whose padded shard is ``p``, on every rank of the model group:
+        the whole padded table's slots ``fwd[rows]``.  Differentiable in
+        ``p`` under the same contract as :meth:`from_padded` (the slots'
+        gradient is summed by the stock ``index_select`` backward)."""
+        self._check_shard(p)
+        return all_gather_rows(p, self.axis).index_select(
+            0, self._fwd_dev[rows])
+
     def _local_slots(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[0] != self.num_rows:
             raise ValueError(f"table has {x.shape[0]} rows, layout holds "
@@ -155,10 +190,13 @@ class SpanLayout:
         return (x.index_select(0, self._inv_local)
                 * self._mask_local.to(x.dtype))
 
-    def _rows(self, p: torch.Tensor) -> torch.Tensor:
+    def _check_shard(self, p: torch.Tensor) -> None:
         if p.shape[0] != self.rows_max:
             raise ValueError(f"padded shard has {p.shape[0]} rows, layout "
                              f"holds {self.rows_max} a rank")
+
+    def _rows(self, p: torch.Tensor) -> torch.Tensor:
+        self._check_shard(p)
         _need_group(self.axis)
         full = p.new_empty((self.padded_rows,) + tuple(p.shape[1:]))
         _all_gather_into(full, p.contiguous(), self.axis.group)

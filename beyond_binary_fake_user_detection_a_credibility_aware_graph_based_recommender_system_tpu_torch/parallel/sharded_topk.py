@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .mesh import model_axis, row_shard
+from .mesh import model_axis, pad_rows, padded_row_count, row_shard
 from .sharded_spmm import _all_gather_into, _need_group
 
 
@@ -31,18 +31,13 @@ class ShardedTopK:
         self.axis = model_axis(mesh)
         self.num_items = num_items
         self.n_dev = self.axis.size
-        self.rows_per = -(-num_items // self.n_dev)
-        self.padded_items = self.rows_per * self.n_dev
+        self.padded_items = padded_row_count(num_items, self.n_dev)
+        self.rows_per = self.padded_items // self.n_dev
 
     def pad_items(self, item_emb: torch.Tensor) -> torch.Tensor:
         """The item table padded with zero rows to a shardable row count
         (pad columns score ``-inf`` at query time)."""
-        I = item_emb.shape[0]
-        if I == self.padded_items:
-            return item_emb
-        out = item_emb.new_zeros((self.padded_items, item_emb.shape[1]))
-        out[:I] = item_emb
-        return out
+        return pad_rows(item_emb, self.n_dev)
 
     def topk(self, user_emb_batch: torch.Tensor,
              item_emb_padded: torch.Tensor, k: int,

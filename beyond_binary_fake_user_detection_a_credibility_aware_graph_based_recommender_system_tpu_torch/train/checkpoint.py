@@ -10,6 +10,13 @@ with ``torch.save``, under the contract of the JAX package's Orbax
 checkpointer: the first step and then every ``every``-th step is saved,
 the last ``keep`` are kept (the latest always), and a resumed run equals
 an uninterrupted one.
+
+Under ``torch.distributed`` the processes of the group share one directory:
+rank 0 writes each saved step and every rank waits at a barrier until it
+is on disk; every rank restores from it.  A trainer on a mesh saves its
+tables and moments gathered and padded (the JAX package's Orbax
+checkpointer saves the sharded arrays), and each rank keeps its block of
+them on restore.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def save_params_npz(path, params: Dict[str, torch.Tensor]) -> None:
@@ -64,15 +72,20 @@ class TrainCheckpointer:
 
     def save(self, step: int, state: Dict[str, Any]) -> bool:
         """Save ``state`` (tensors on any device) as ``step``; returns False
-        when the cadence skips it."""
+        when the cadence skips it.  In a process group only rank 0 writes,
+        and every rank returns once the file is written."""
         if self.latest_step() is not None and step % self.every != 0:
             return False
-        path = self._path(step)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(_to_cpu(state), tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self.keep]:
-            self._path(old).unlink()
+        group = dist.is_initialized()
+        if not group or dist.get_rank() == 0:
+            path = self._path(step)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(_to_cpu(state), tmp)
+            os.replace(tmp, path)
+            for old in self.all_steps()[:-self.keep]:
+                self._path(old).unlink()
+        if group:
+            dist.barrier()
         return True
 
     def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:

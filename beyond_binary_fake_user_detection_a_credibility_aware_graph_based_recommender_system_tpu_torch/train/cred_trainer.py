@@ -33,6 +33,13 @@ a fit is bit-reproducible per seed.  The SLAS draws come from the same
 generator; the JAX package's threefry stream cannot be reproduced, so tests
 inject its uniforms (``uniforms=``).
 
+Under a (data, model) mesh the views' operators are the edge-sharded ones
+(``parallel/sharded_spmm.py``), as in the JAX package: the full-graph
+forward, ``holdout_metrics`` and ``infer`` run through them, while the
+parameters stay replicated and every rank takes the same batch (the
+operators' replicated-cotangent contract), so no gradient is reduced.  The
+SLAS path is unchanged; only rank 0 logs.
+
 Export parity (main.py:965-1025): inference with no temporal view,
 min-max normalization (constant -> zeros), ``credibility_scores_minmax.npy``
 + ``user_id,user_idx,credibility`` CSV + ``cred_model.npz``.
@@ -91,10 +98,13 @@ def holdout_bce_auc(y: np.ndarray, scores: np.ndarray) -> Dict[str, float]:
 
 class CredTrainer:
     def __init__(self, hg: HeteroGraph, cfg: Optional[CredConfig] = None,
-                 device="cuda", backend: str = "auto", verbose: bool = True):
+                 device="cuda", backend: str = "auto", verbose: bool = True,
+                 mesh=None):
         """``backend``: "auto" launches the SpMM and Adam kernels for CUDA
         tensors (plain versions on the CPU); "torch" runs the plain
-        versions on any device."""
+        versions on any device.  ``mesh``: a (data, model) ``DeviceMesh``
+        on ``device``, whose edge-sharded operators the model then runs
+        on."""
         if backend not in ("auto", "torch"):
             raise ValueError(f"unknown backend {backend!r}")
         self.cfg = cfg or CredConfig()
@@ -102,14 +112,27 @@ class CredTrainer:
         self.device = resolve_device(device)
         self.backend = backend
         self.verbose = verbose
+        self.mesh = mesh
+        factory = None
+        if mesh is not None:
+            import functools
+            import torch.distributed as dist
+            from ..parallel.sharded_spmm import ShardedSpmmOperator
+            factory = functools.partial(ShardedSpmmOperator, mesh=mesh,
+                                        backend=backend)
+            self.verbose = verbose and (not dist.is_initialized()
+                                        or dist.get_rank() == 0)
         # slas mode never touches the full-graph temporal-view operators
+        # off a mesh; on one they are built in both modes, the sharded
+        # full-graph inference staying available there
         # (``JAX: train/cred_trainer.py:71-78``)
         self.model = None
         self.slas_data = None
         if self.cfg.trainer_mode == "slas":
             self.slas_data = build_slas_graph_data(hg, self.cfg, self.device)
-        else:
-            self.model = CredModel(hg, self.cfg, self.device, backend=backend)
+        if self.cfg.trainer_mode != "slas" or mesh is not None:
+            self.model = CredModel(hg, self.cfg, self.device, backend=backend,
+                                   operator_factory=factory)
 
         labeled = np.nonzero(hg.user_y >= 0)[0]
         if labeled.size == 0:

@@ -23,6 +23,14 @@ The port of the JAX package's ``RecTrainer`` on one device:
 The loss stays on the device; the host reads it once per epoch.  A step is
 deterministic on the card (see :func:`deterministic_algorithms`), so a fit
 is bit-reproducible per seed, as the JAX package's is.
+
+Under a (data, model) mesh the whole path runs sharded
+(``parallel/sharding.py``), as the JAX package's does: every rank holds its
+``ceil(N/P)`` rows of each table and of both Adam moments, every rank draws
+the same whole epoch and trains on its data replica's columns of each batch
+(so a mesh fit sees exactly the samples a one-device fit draws), the loss
+combines whole tables, gradients are summed over the data axis, and rank 0
+alone logs and writes files.
 """
 
 from __future__ import annotations
@@ -135,22 +143,36 @@ class RecTrainer:
         """``mesh``: a (data, model) ``DeviceMesh`` (``parallel/mesh.py``)
         on ``device``.  The model then propagates through edge-sharded
         operators (``parallel/sharded_spmm.py``, padded chain, mode
-        ``cfg.sharded_spmm_mode``) and full-catalogue evaluation ranks
-        through the distributed top-k; ``fit`` under a mesh is ROADMAP.md
-        Queue 1 item 11b.  ``operator_factory(edge_map)`` builds the
-        model's operators in place of either default."""
+        ``cfg.sharded_spmm_mode``), training runs the sharded step
+        (``parallel/sharding.py``; ``cfg.batch_size`` must divide by the
+        data axis) on this rank's blocks of the parameters, and
+        full-catalogue evaluation ranks through the distributed top-k.
+        ``operator_factory(edge_map)`` builds the model's operators in place
+        of either default."""
         cfg.validate()
         self.cfg = cfg
         self.graph = graph
         self.device = resolve_device(device)
         self.verbose = verbose
         self.mesh = mesh
-        if mesh is not None and operator_factory is None:
+        self._rank0 = True
+        if mesh is not None:
             import functools
+            import torch.distributed as dist
+            from ..parallel.mesh import data_axis, model_axis
             from ..parallel.sharded_spmm import ShardedSpmmOperator
-            operator_factory = functools.partial(
-                ShardedSpmmOperator, mesh=mesh, mode=cfg.sharded_spmm_mode,
-                backend=cfg.spmm_backend, precision=cfg.spmm_precision)
+            self._model_axis = model_axis(mesh)
+            self._data_axis = data_axis(mesh)
+            if cfg.batch_size % self._data_axis.size:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} does not split over the "
+                    f"{self._data_axis.size} data replicas of the mesh")
+            self._rank0 = not dist.is_initialized() or dist.get_rank() == 0
+            if operator_factory is None:
+                operator_factory = functools.partial(
+                    ShardedSpmmOperator, mesh=mesh,
+                    mode=cfg.sharded_spmm_mode, backend=cfg.spmm_backend,
+                    precision=cfg.spmm_precision)
 
         if cred is None and cfg.cred_csv_path:
             cred = load_credibility_vector(cfg.cred_csv_path, graph.num_users,
@@ -181,18 +203,50 @@ class RecTrainer:
                 deg_i, self.device, mix_pop=cfg.neg_mix_pop,
                 gamma=cfg.neg_pop_gamma)
 
+        if mesh is not None:
+            from ..parallel.sharding import make_sharded_train_step, table_rows
+            self._rows = table_rows(self.model)
+            self._sharded_step = make_sharded_train_step(
+                self.model, mesh, cfg.lr, loss_fn=self._loss_fn,
+                backend=cfg.spmm_backend)[0]
+
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None
                    ) -> Tuple[Params, AdamState, torch.Generator]:
         """Xavier parameters and zero Adam moments from a generator seeded
         ``seed`` (default ``cfg.seed``); the generator then draws the
-        epochs."""
+        epochs.  Under a mesh every rank draws the same whole tables and
+        keeps its blocks (:meth:`_pad_params`); the moments are zeros of the
+        blocks' shapes."""
         seed = self.cfg.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         params = init_params(gen, self.cfg, self.graph.num_users,
                              self.graph.num_items)
+        if self.mesh is not None:
+            params = self._pad_params(params)
         return params, adam_init(params), gen
+
+    def _pad_params(self, params: Params) -> Params:
+        """This rank's blocks of exact-row tables: each padded with zero rows
+        to ``ceil(N/P) * P`` and cut to its ``ceil(N/P)`` rows
+        (``parallel/sharding.shard_params``; the JAX package's
+        ``_pad_params`` and row sharding).  Padded tables (a checkpoint's)
+        need no more rows and are cut the same."""
+        from ..parallel.sharding import shard_params
+        return shard_params({k: v.to(self.device) for k, v in params.items()},
+                            self._model_axis)
+
+    def _trim(self, blocks: Params, keep_pad: bool = False) -> Params:
+        """The exact-row tables (or the padded ones) of this rank's blocks,
+        on every rank: the model group's all-gather, no gradient; the
+        parameters themselves without a mesh."""
+        if self.mesh is None:
+            return blocks
+        from ..parallel.sharding import gather_params
+        with torch.no_grad():
+            return gather_params(blocks, self._model_axis,
+                                 None if keep_pad else self._rows)
 
     def _sample_epoch(self, gen: torch.Generator, users_flat: torch.Tensor):
         """One vectorized positive and negative draw for every batch of the
@@ -211,7 +265,9 @@ class RecTrainer:
     def draw_epoch(self, gen: torch.Generator) -> Batches:
         """``(users, pos, neg, mask)``, each ``(nb, batch_size)``: a
         permutation of the train users padded with user 0, its samples, and
-        the validity mask of the padded tail."""
+        the validity mask of the padded tail.  Under a mesh too it is the
+        whole epoch (the same on every rank); :meth:`run_epoch` keeps the
+        replica's columns."""
         B = self.cfg.batch_size
         n = self.train_users.size
         nb = -(-n // B)
@@ -234,49 +290,62 @@ class RecTrainer:
 
     def _loss_fn(self, params: Params, users, pos, neg, mask,
                  cached_rest: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                 = None, plans: Optional[StepPlans] = None) -> torch.Tensor:
-        """The step's loss; with ``plans`` (:meth:`step_plans`) every
-        batch-row gather has the segment-sum backward, without them the
-        plain ``x[rows]``."""
+                 = None, plans: Optional[StepPlans] = None,
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step's loss on exact-row tables; with ``plans``
+        (:meth:`step_plans`) every batch-row gather has the segment-sum
+        backward, without them the plain ``x[rows]``.  ``count`` is the
+        whole batch's mask count when ``mask`` is one data replica's
+        columns of it (default: ``mask``'s)."""
         B = users.shape[0]
         items = torch.cat([pos, neg])
         p_u, p_i = plans or (None, None)
         bk = self.cfg.spmm_backend
-        if cached_rest is None:
+        if cached_rest is None and self.mesh is None:
             # batch-row combine: gather each layer's batch rows and average
             # B-row vectors instead of the full tables (bit-identical scores)
             u_rows, i_rows = self.model.propagate_rows(params, users, items,
                                                        plans)
         else:
-            # "per_epoch": the propagated rest is cached (constant within
-            # the epoch) but the layer-0 ego term comes from the CURRENT
-            # params, so BPR gradients flow (a cached whole table would
-            # leave only L2)
-            rest_u, rest_i = cached_rest
-            ego_u, ego_i = ego_tables(params, self.graph.num_users)
-            scale = 1.0 / (self.cfg.num_layers + 1)
-            u_rows = gather_rows(rest_u + scale * ego_u, users, p_u, bk)
-            i_rows = gather_rows(rest_i + scale * ego_i, items, p_i, bk)
+            if cached_rest is None:
+                # the mesh keeps table combine, as the JAX package's does
+                # (rows of the sharded chain would cost collectives a layer)
+                user_emb, item_emb = self.model.propagate(params)
+            else:
+                # "per_epoch": the propagated rest is cached (constant
+                # within the epoch) but the layer-0 ego term comes from the
+                # CURRENT params, so BPR gradients flow (a cached whole
+                # table would leave only L2)
+                rest_u, rest_i = cached_rest
+                ego_u, ego_i = ego_tables(params, self.graph.num_users)
+                scale = 1.0 / (self.cfg.num_layers + 1)
+                user_emb = rest_u + scale * ego_u
+                item_emb = rest_i + scale * ego_i
+            u_rows = gather_rows(user_emb, users, p_u, bk)
+            i_rows = gather_rows(item_emb, items, p_i, bk)
         # Eq 3.26 (LightGCN.score) on the gathered rows
         pos_s = (u_rows * i_rows[:B]).sum(-1)
         neg_s = (u_rows * i_rows[B:]).sum(-1)
-        loss = losses.bpr_loss(pos_s, neg_s, mask)
+        loss = losses.bpr_loss(pos_s, neg_s, mask, count)
         ego_u, ego_i = ego_tables(params, self.graph.num_users)
         ego_items = gather_rows(ego_i, items, p_i, bk)
         reg = losses.ego_l2(gather_rows(ego_u, users, p_u, bk),
-                            ego_items[:B], ego_items[B:], mask)
+                            ego_items[:B], ego_items[B:], mask, count)
         loss = loss + self.cfg.reg * reg
         if self.cfg.lambda_fair != 0.0:
-            fair = losses.fairness_loss(self.pop_norm[pos], pos_s, mask)
+            fair = losses.fairness_loss(self.pop_norm[pos], pos_s, mask,
+                                        count)
             loss = loss + self.cfg.lambda_fair * fair
         return loss
 
     def _epoch_cache(self, params: Params
                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """The "per_epoch" schedule's cached propagation minus its ego term
-        (None under "per_batch")."""
+        (None under "per_batch"), of exact-row tables (under a mesh: of the
+        gathered blocks ``params``)."""
         if self.cfg.propagation_schedule != "per_epoch":
             return None
+        params = self._trim(params)
         with torch.no_grad():
             user_emb, item_emb = self.model.propagate(params)
             ego_u, ego_i = ego_tables(params, self.graph.num_users)
@@ -285,19 +354,26 @@ class RecTrainer:
 
     def train_step(self, params: Params, opt_state: AdamState, users, pos,
                    neg, mask, cached_rest=None,
-                   plans: Optional[StepPlans] = None) -> torch.Tensor:
+                   plans: Optional[StepPlans] = None,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One BPR step: loss, gradients, and the in-place Adam update of
         ``params`` and ``opt_state``.  Returns the step's loss (a 0-d
         tensor on the device).  ``plans`` are the step's gather plans
         (:meth:`step_plans`); without them the step builds its own, which
-        waits for the batch to reach the host."""
+        waits for the batch to reach the host.  Under a mesh ``params`` and
+        ``opt_state`` are this rank's blocks, the batch is this replica's
+        columns, ``count`` the whole batch's mask count, and the loss is the
+        whole batch's (``parallel/sharding.py``)."""
         if plans is None:
             plans = self.step_plans(users[None], pos[None], neg[None])[0]
         with deterministic_algorithms():
+            if self.mesh is not None:
+                return self._sharded_step(params, opt_state, users, pos, neg,
+                                          mask, cached_rest, plans, count)
             leaves = {k: p.detach().requires_grad_() for k, p in
                       params.items()}
             loss = self._loss_fn(leaves, users, pos, neg, mask, cached_rest,
-                                 plans)
+                                 plans, count)
             grads = torch.autograd.grad(loss, list(leaves.values()))
             adam_step(params, dict(zip(leaves, grads)), opt_state,
                       self.cfg.lr, backend=self.cfg.spmm_backend)
@@ -307,23 +383,35 @@ class RecTrainer:
                   batches: Batches) -> torch.Tensor:
         """Every step of one epoch over pre-drawn ``(users, pos, neg,
         mask)`` batches, whose gather plans are built first, all at once;
-        returns the per-step losses on the device."""
+        returns the per-step losses on the device.  Under a mesh the
+        batches are the whole epoch's: this replica trains on its columns
+        of each (the JAX package's ``PartitionSpec(None, "data")``)."""
+        nb = batches[0].shape[0]
+        counts = [None] * nb
+        if self.mesh is not None:
+            counts = batches[3].sum(1)
+            n = self.cfg.batch_size // self._data_axis.size
+            cols = slice(self._data_axis.coord * n,
+                         (self._data_axis.coord + 1) * n)
+            batches = tuple(x[:, cols].contiguous() for x in batches)
         users_all, pos_all, neg_all, mask_all = batches
         plans = self.step_plans(users_all, pos_all, neg_all)
         cached = self._epoch_cache(params)
         return torch.stack([
             self.train_step(params, opt_state, users_all[s], pos_all[s],
-                            neg_all[s], mask_all[s], cached, plans[s])
-            for s in range(users_all.shape[0])])
+                            neg_all[s], mask_all[s], cached, plans[s],
+                            counts[s])
+            for s in range(nb)])
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, params: Params, split: str,
                  gen: Optional[torch.Generator] = None,
                  extended: Optional[bool] = None):
-        """Metrics of ``params`` (tensors on any device) on ``split``.
-        Sampled mode draws from ``gen``, by default the dedicated eval
-        stream seeded ``cfg.seed + 999`` (reference lightgcn.py:406)."""
+        """Metrics of exact-row ``params`` (tensors on any device; under a
+        mesh the gathered tables, :meth:`_trim`) on ``split``.  Sampled mode
+        draws from ``gen``, by default the dedicated eval stream seeded
+        ``cfg.seed + 999`` (reference lightgcn.py:406)."""
         cfg = self.cfg
         extended = cfg.extended_metrics if extended is None else extended
         params = {k: v.to(self.device) for k, v in params.items()}
@@ -347,13 +435,10 @@ class RecTrainer:
     def fit(self, epochs: Optional[int] = None, seed: Optional[int] = None,
             checkpointer: Optional[TrainCheckpointer] = None,
             resume: bool = False) -> FitResult:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "fit under a mesh (row-sharded tables and Adam moments, "
-                "sharded batches) is ROADMAP.md Queue 1 item 11b; a mesh "
-                "serves only (evaluate)")
+        """Train ``epochs`` epochs with validation every ``cfg.eval_every``,
+        then test the best parameters; the result's ``best_params`` are
+        exact-row tables (under a mesh too, on every rank)."""
         cfg = self.cfg
-        dev = self.device
         epochs = cfg.epochs if epochs is None else epochs
         params, opt_state, gen = self.init_state(seed)
         start_epoch = 1
@@ -363,23 +448,21 @@ class RecTrainer:
         if checkpointer is not None and resume:
             state = checkpointer.restore()
             if state is not None:
-                params = {k: v.to(dev) for k, v in state["params"].items()}
                 opt = state["opt_state"]
-                opt_state = AdamState(
-                    m={k: v.to(dev) for k, v in opt["m"].items()},
-                    v={k: v.to(dev) for k, v in opt["v"].items()},
-                    count=int(opt["count"]))
+                params = self._load(state["params"])
+                opt_state = AdamState(m=self._load(opt["m"]),
+                                      v=self._load(opt["v"]),
+                                      count=int(opt["count"]))
                 gen.set_state(state["gen_state"])
                 start_epoch = int(state["epoch"]) + 1
                 best_val = float(state["best_val"])
-                best_params = {k: v.to(dev)
-                               for k, v in state["best_params"].items()}
+                best_params = self._load(state["best_params"])
                 self._log(f"[CKPT] resumed at epoch {start_epoch}")
 
         # the structured JSONL stream and the human lines share the product
-        # path: `train-rec --out D` leaves D/metrics.jsonl
+        # path: `train-rec --out D` leaves D/metrics.jsonl (rank 0's)
         metric_log = None
-        if cfg.out_dir:
+        if cfg.out_dir and self._rank0:
             from ..eval.report import MetricLogger
             metric_log = MetricLogger(f"{cfg.out_dir}/metrics.jsonl",
                                       echo=False)
@@ -396,7 +479,8 @@ class RecTrainer:
 
             entry = TrainLogEntry(epoch=epoch, loss=loss, seconds=dt)
             if epoch % cfg.eval_every == 0:
-                val_res = self.evaluate(params, "val")
+                tables = self._trim(params)
+                val_res = self.evaluate(tables, "val")
                 entry.val = val_res
                 self._log(format_metrics_block("VAL", val_res))
                 val_score = val_res[selK]["recall"]
@@ -405,9 +489,9 @@ class RecTrainer:
                     best_params = _clone(params)
                     self._log(f"  saved best (val Recall@{selK}="
                               f"{best_val:.4f})")
-                    if cfg.out_dir and cfg.save_best:
+                    if cfg.out_dir and cfg.save_best and self._rank0:
                         save_params_npz(f"{cfg.out_dir}/best_model.npz",
-                                        best_params)
+                                        tables)
             if metric_log is not None:
                 rec = {"event": "epoch", "epoch": epoch, "loss": loss,
                        "seconds": dt}
@@ -418,15 +502,20 @@ class RecTrainer:
             history.append(entry)
 
             if checkpointer is not None:
+                # under a mesh: the padded tables and moments, gathered
+                # (rank 0 writes, train/checkpoint.py)
                 checkpointer.save(epoch, {
-                    "params": params,
-                    "opt_state": {"m": opt_state.m, "v": opt_state.v,
+                    "params": self._trim(params, keep_pad=True),
+                    "opt_state": {"m": self._trim(opt_state.m, keep_pad=True),
+                                  "v": self._trim(opt_state.v, keep_pad=True),
                                   "count": opt_state.count},
                     "gen_state": gen.get_state(), "epoch": epoch,
-                    "best_val": best_val, "best_params": best_params})
+                    "best_val": best_val,
+                    "best_params": self._trim(best_params, keep_pad=True)})
 
         if checkpointer is not None:
             checkpointer.wait()
+        best_params = self._trim(best_params)
         test_res = self.evaluate(best_params, "test")
         self._log("\nTEST " + format_metrics_block("TEST", test_res)[5:])
         if metric_log is not None:
@@ -436,6 +525,13 @@ class RecTrainer:
         return FitResult(best_params=best_params, best_val_recall=best_val,
                          test_metrics=test_res, history=history)
 
+    def _load(self, tables: Params) -> Params:
+        """Checkpointed tables on this device (under a mesh: this rank's
+        blocks of the padded tables)."""
+        if self.mesh is not None:
+            return self._pad_params(tables)
+        return {k: v.to(self.device) for k, v in tables.items()}
+
     def _log(self, msg: str):
-        if self.verbose:
+        if self.verbose and self._rank0:
             print(msg)

@@ -127,10 +127,30 @@ Phases (each prints one line; any failure exits non-zero):
      gloo (NCCL takes one rank a device), each propagating in both
      exchanges and evaluating on the (1, 2) mesh: tables bit-equal to
      (a)'s, identical metrics on both ranks.
+ 16. training on a mesh (``parallel/sharding.py``): (a) in this process, a
+     world of one over NCCL, 3 sharded train steps from phase 7's
+     parameters and batches against phase 7's one-card kernel path
+     (parameters rtol 1e-5 / atol 1e-6, losses 1e-6; whether bit-equal),
+     12 ``sharded_spmm``, 4 ``gather_backward`` and 1 ``fused_adam`` launch
+     a step, no index_put / index_add / indexing_backward in a profiled
+     step, the step's times beside one card's in turns (CUDA events,
+     profiler device and window ms, host us) and the host cost of the
+     parameter all-gather and the gradient all-reduce; (b) the CLI's
+     train-rec --mesh 1 for 2 epochs with checkpoints, counted (in this
+     process): finite losses, exact-row best_model.npz, evaluate
+     reproduces test_metrics.json, its wall beside phase 6's; (c) Stage A
+     on a world of one: 3 full-graph steps against phase 12's kernel path
+     (8 ``sharded_spmm``, 5 ``gather_backward``, 1 ``fused_adam`` a step),
+     then the CLI's train-cred --mesh 1 trainer_mode=full_graph for 1
+     epoch on phase 11's JSONL, counted, scores finite in [0, 1]; (d) two
+     ranks of this script on the one card over gloo, each training the
+     3 steps on the (1, 2) mesh and then on the (2, 1) mesh in the same
+     process: losses identical on both ranks, parameters and losses within
+     phase 7's tolerances of its one-card kernel path.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
-3, 6, 10, 11, 12 and 15) and read after it; a kernel that is not on that
-path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
+3, 6, 10, 11, 12, 15 and 16 (b), (c)) and read after it; a kernel that is
+not on that path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
 JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -241,6 +261,42 @@ def read_counts(expected: dict, path: str) -> dict:
     if got != want:
         raise AssertionError(f"{path}: launches {got}, expected {want}")
     return got
+
+
+def _counts_now() -> dict:
+    return {name: k.launches for name, k in kernel_counters().items()}
+
+
+def _launched(before: dict, want: dict, tag: str) -> dict:
+    """Every kernel's launches since ``before``; a kernel not named in
+    ``want`` must not have launched."""
+    got = {n: k.launches - before[n] for n, k in kernel_counters().items()}
+    full = {n: want.get(n, 0) for n in got}
+    if got != full:
+        raise AssertionError(f"{tag}: launches {got}, expected {full}")
+    return got
+
+
+def _held(params: dict, losses, ref: dict, tag: str) -> tuple:
+    """Train steps' ``params`` and ``losses`` against ``ref``'s at phase 7's
+    tolerances (parameters TRAIN_RTOL / TRAIN_ATOL, losses LOSS_ATOL):
+    (loss diff, parameter diff, bit-equal)."""
+    import torch
+    loss_err = float((losses - ref["losses"]).abs().max())
+    if loss_err > LOSS_ATOL or not torch.isfinite(losses).all():
+        raise AssertionError(f"{tag}: losses differ by {loss_err} > "
+                             f"{LOSS_ATOL}")
+    p_err = 0.0
+    for k, want in ref["params"].items():
+        diff = (params[k].to(want.device) - want).abs()
+        if bool((diff > TRAIN_ATOL + TRAIN_RTOL * want.abs()).any()):
+            raise AssertionError(f"{tag}: {k} differs by "
+                                 f"{float(diff.max())}")
+        p_err = max(p_err, float(diff.max()))
+    bit = torch.equal(losses.to(ref["losses"].device), ref["losses"]) and all(
+        torch.equal(params[k].to(v.device), v)
+        for k, v in ref["params"].items())
+    return loss_err, p_err, bit
 
 
 # --------------------------------------------------------------------------
@@ -998,8 +1054,6 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
     from importlib import import_module
     trainer_mod = import_module(f"{PKG}.train.trainer")
     adam = import_module(f"{PKG}.ops.adam")
-    sc = import_module(f"{PKG}.ops.spmm_cuda")
-    ac = import_module(f"{PKG}.ops.adam_cuda")
     graph = ctx["graph"]
     cfg = ctx["cfg"]
     tr_k = trainer_mod.RecTrainer(cfg, graph, device=dev, verbose=False)
@@ -1011,7 +1065,6 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
     plans = tr_k.step_plans(users, pos, neg)
     batches = [(users[s], pos[s], neg[s], mask[s], None, plans[s]) for s in
                (i % users.shape[0] for i in range(PARITY_STEPS))]
-    kernels = (sc.KERNEL, sc.GATHER_KERNEL, ac.KERNEL)
 
     def run(tr):
         params = _params(ctx, dev)
@@ -1021,30 +1074,18 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
         torch.cuda.synchronize()
         return params, losses
 
-    before = [k.launches for k in kernels]
+    before = _counts_now()
     pk, lk = run(tr_k)
-    got = tuple(k.launches - b for k, b in zip(kernels, before))
-    want = (4 * cfg.num_layers * PARITY_STEPS,
-            (2 * cfg.num_layers + 4) * PARITY_STEPS, PARITY_STEPS)
-    if got != want:
-        raise AssertionError(f"kernel path launched {got}, expected {want}")
-    before = [k.launches for k in kernels]
+    _launched(before, {"segment_spmm": 4 * cfg.num_layers * PARITY_STEPS,
+                       "gather_backward":
+                           (2 * cfg.num_layers + 4) * PARITY_STEPS,
+                       "fused_adam": PARITY_STEPS}, "the kernel path")
+    before = _counts_now()
     pp, lp = run(tr_p)
-    if [k.launches for k in kernels] != before:
-        raise AssertionError("the plain path launched a kernel")
+    _launched(before, {}, "the plain path")
     pk2, lk2 = run(tr_k)
-
-    loss_err = float((lk - lp).abs().max())
-    if loss_err > LOSS_ATOL or not torch.isfinite(lk).all():
-        raise AssertionError(f"losses differ from the plain path by "
-                             f"{loss_err} > {LOSS_ATOL}")
-    p_err = 0.0
-    for k in pk:
-        diff = (pk[k] - pp[k]).abs()
-        if bool((diff > TRAIN_ATOL + TRAIN_RTOL * pp[k].abs()).any()):
-            raise AssertionError(f"{k} differs from the plain path by "
-                                 f"{float(diff.max())}")
-        p_err = max(p_err, float(diff.max()))
+    loss_err, p_err, _ = _held(pk, lk, {"params": pp, "losses": lp},
+                               "the kernel path against the plain path")
     moved = min(float((pk[k] - torch.as_tensor(ctx["params_np"][k],
                                                device=dev)).abs().max())
                 for k in pk)
@@ -1058,7 +1099,8 @@ def phase_train_parity(dev, tmp: Path, ctx: dict):
         f"smallest table moved by {moved:.3g}); two kernel-path runs "
         f"bit-identical: {bit}")
     return {"loss_max_diff": loss_err, "param_max_diff": p_err,
-            "bit_identical": bit, "_trainer": tr_k}
+            "bit_identical": bit, "_trainer": tr_k,
+            "_ref": {"params": pk, "losses": lk, "batches": batches}}
 
 
 def step_split(loss_of, params, opt, lr: float, n: int) -> dict:
@@ -1702,9 +1744,10 @@ def cred_steps_per_epoch(hg, batch_size: int) -> int:
     return -(-n // min(batch_size, n))
 
 
-def _check_scores(res, num_users: int, tag: str) -> None:
+def _check_scores(res, num_users: int, tag: str,
+                  epochs: int = CRED_EPOCHS) -> None:
     losses = [h["loss"] for h in res.history]
-    if len(losses) != CRED_EPOCHS or not np.isfinite(losses).all():
+    if len(losses) != epochs or not np.isfinite(losses).all():
         raise AssertionError(f"{tag}: epoch losses {losses}")
     s = res.cred_minmax
     if s.shape != (num_users,) or not np.isfinite(s).all() \
@@ -1794,8 +1837,6 @@ def phase_cred_full_graph(dev, hg) -> dict:
     ct = import_module(f"{PKG}.train.cred_trainer")
     config = import_module(f"{PKG}.utils.config")
     adam = import_module(f"{PKG}.ops.adam")
-    sc = import_module(f"{PKG}.ops.spmm_cuda")
-    ac = import_module(f"{PKG}.ops.adam_cuda")
     cfg = config.CredConfig(trainer_mode="full_graph", epochs=CRED_EPOCHS)
     # ---- this path, counted (every kernel's count) ----
     reset_counts()
@@ -1824,7 +1865,6 @@ def phase_cred_full_graph(dev, hg) -> dict:
     users, mask = tr.epoch_batches(None, order)
     plans = tr.seed_plans(users)
     steps = [s % users.shape[0] for s in range(PARITY_STEPS)]
-    kernels = (sc.KERNEL, sc.GATHER_KERNEL, ac.KERNEL)
 
     def run(t):
         params = {k: v.clone() for k, v in params0.items()}
@@ -1835,28 +1875,19 @@ def phase_cred_full_graph(dev, hg) -> dict:
         torch.cuda.synchronize()
         return params, losses
 
-    before = [k.launches for k in kernels]
+    before = _counts_now()
     pk, lk = run(tr)
-    got = tuple(k.launches - b for k, b in zip(kernels, before))
-    if got != (8 * PARITY_STEPS, CRED_GATHERS * PARITY_STEPS,
-               CRED_ADAM * PARITY_STEPS):
-        raise AssertionError(f"kernel path launched {got}")
-    before = [k.launches for k in kernels]
+    _launched(before, {"segment_spmm": 8 * PARITY_STEPS,
+                       "gather_backward": CRED_GATHERS * PARITY_STEPS,
+                       "fused_adam": CRED_ADAM * PARITY_STEPS},
+              "the Stage-A kernel path")
+    before = _counts_now()
     pp, lp = run(tr_p)
-    if [k.launches for k in kernels] != before:
-        raise AssertionError("the plain path launched a kernel")
+    _launched(before, {}, "the Stage-A plain path")
     pk2, lk2 = run(tr)
-    loss_err = float((lk - lp).abs().max())
-    if loss_err > LOSS_ATOL or not torch.isfinite(lk).all():
-        raise AssertionError(f"Stage-A losses differ from the plain path by "
-                             f"{loss_err} > {LOSS_ATOL}")
-    p_err = 0.0
-    for k in pk:
-        diff = (pk[k] - pp[k]).abs()
-        if bool((diff > TRAIN_ATOL + TRAIN_RTOL * pp[k].abs()).any()):
-            raise AssertionError(f"{k} differs from the plain path by "
-                                 f"{float(diff.max())}")
-        p_err = max(p_err, float(diff.max()))
+    loss_err, p_err, _ = _held(pk, lk, {"params": pp, "losses": lp},
+                               "the Stage-A kernel path against the plain "
+                               "path")
     bit = torch.equal(lk, lk2) and all(torch.equal(pk[k], pk2[k]) for k in pk)
     if not bit:
         raise AssertionError("two Stage-A kernel-path runs are not "
@@ -1879,7 +1910,10 @@ def phase_cred_full_graph(dev, hg) -> dict:
     return {"launches_by_kernel": counts, "setup_s": t1 - t0,
             "fit_s": t2 - t1, "steps_per_epoch": nb, "history": res.history,
             "loss_max_diff": loss_err, "param_max_diff": p_err,
-            "bit_identical": bit, "_trainer": tr}
+            "bit_identical": bit, "_trainer": tr,
+            "_ref": {"params0": params0, "users": users, "mask": mask,
+                     "plans": plans, "steps": steps, "params": pk,
+                     "losses": lk}}
 
 
 def phase_two_stage(dev, tmp: Path, jsonl: Path, cred_dir: Path) -> dict:
@@ -2317,17 +2351,13 @@ def phase_serving_mesh(dev, tmp: Path, ctx: dict, res: dict) -> dict:
             "evaluate_ms": evals, "directions": dirs, "two_ranks": two}
 
 
-def phase_mesh_two_ranks(tmp: Path, ref_u, ref_i, ref_metrics) -> dict:
-    """Part (b): MESH_WORKERS ranks of this script on the one card, joined
-    over gloo (NCCL takes one rank a device); each propagates in both
-    exchanges and evaluates the full catalogue on the (1, MESH_WORKERS)
-    mesh; both ranks' tables must be bit-equal to the one-card path and
-    their metrics identical, within 1e-6 of ``ref_metrics``."""
-    import torch
-    out = tmp / "mesh_two"
-    out.mkdir()
+def run_two_ranks(tmp: Path, mode: str) -> float:
+    """MESH_WORKERS ranks of this script on the one card, joined over gloo
+    (NCCL takes one rank a device), in ``mode`` ("serve" or "train"; files
+    in ``tmp/mesh_two``); returns their wall seconds, or raises with the
+    output of a rank that failed."""
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(mesh_worker_command(r, MESH_WORKERS, tmp),
+    procs = [subprocess.Popen(mesh_worker_command(r, MESH_WORKERS, tmp, mode),
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(MESH_WORKERS)]
@@ -2346,8 +2376,20 @@ def phase_mesh_two_ranks(tmp: Path, ref_u, ref_i, ref_metrics) -> dict:
     failed = [o for p, o in zip(procs, outs) if p.returncode != 0
               or "[mesh worker OK]" not in o]
     if failed or len(outs) < len(procs):
-        raise AssertionError(f"two ranks on one card over gloo failed:\n"
-                             f"{(failed or outs)[-1][-3000:]}")
+        raise AssertionError(f"two ranks on one card over gloo ({mode}) "
+                             f"failed:\n{(failed or outs)[-1][-3000:]}")
+    return seconds
+
+
+def phase_mesh_two_ranks(tmp: Path, ref_u, ref_i, ref_metrics) -> dict:
+    """Part (b): two ranks (:func:`run_two_ranks`), each propagates in both
+    exchanges and evaluates the full catalogue on the (1, MESH_WORKERS)
+    mesh; both ranks' tables must be bit-equal to the one-card path and
+    their metrics identical, within 1e-6 of ``ref_metrics``."""
+    import torch
+    out = tmp / "mesh_two"
+    out.mkdir(exist_ok=True)
+    seconds = run_two_ranks(tmp, "serve")
     for mode in ("halo", "allgather"):
         for r in range(MESH_WORKERS):
             u, i = (torch.as_tensor(np.load(out / f"{mode}_{t}_r{r}.npy"))
@@ -2364,14 +2406,18 @@ def phase_mesh_two_ranks(tmp: Path, ref_u, ref_i, ref_metrics) -> dict:
             "metrics_err": _metrics_equal(metrics[0], ref_metrics)}
 
 
-def mesh_worker_command(rank: int, world: int, tmp: Path) -> list:
+def mesh_worker_command(rank: int, world: int, tmp: Path,
+                        mode: str = "serve") -> list:
     return [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
-            str(rank), str(world), str(tmp)]
+            str(rank), str(world), str(tmp), mode]
 
 
-def mesh_worker(rank: int, world: int, tmp: Path, dev=None) -> int:
-    """One rank of part (b): gloo on ``dev`` (the card), the (1, world)
-    mesh."""
+def mesh_worker(rank: int, world: int, tmp: Path, dev=None,
+                mode: str = "serve") -> int:
+    """One rank of phase 15's part (b) (``mode`` "serve": the (1, world)
+    mesh) or of phase 16's part (d) ("train": the (1, world) mesh, then
+    the (world, 1) mesh in the same process): gloo on ``dev`` (the
+    card)."""
     import torch
     import torch.distributed as dist
     from datetime import timedelta
@@ -2385,28 +2431,387 @@ def mesh_worker(rank: int, world: int, tmp: Path, dev=None) -> int:
     ckpt = import_module(f"{PKG}.train.checkpoint")
     dev = dev or torch.device("cuda", 0)
     out = tmp / "mesh_two"
-    distributed.initialize(init_method=f"file://{out}/store",
+    distributed.initialize(init_method=f"file://{out}/store_{mode}",
                            world_size=world, rank=rank, device=dev,
                            backend="gloo", timeout=timedelta(seconds=120))
-    mesh = mesh_mod.make_mesh(world, shape=(1, world), device_type=dev.type)
     graph = build.BipartiteGraph.load_npz(tmp / "graph.npz")
     cfg = presets.get_preset("cu_message").replace(
         cred_csv_path=str(tmp / "cred.csv"), eval_mode="full")
-    params = ckpt.load_params_npz(tmp / "best_model.npz", device=dev)
-    for mode in ("halo", "allgather"):
-        tr = trainer_mod.RecTrainer(cfg.replace(sharded_spmm_mode=mode),
-                                    graph, device=dev, mesh=mesh,
-                                    verbose=False)
-        with torch.no_grad():
-            u, i = tr.model.propagate(params)
-        np.save(out / f"{mode}_u_r{rank}.npy", u.cpu().numpy())
-        np.save(out / f"{mode}_i_r{rank}.npy", i.cpu().numpy())
-    res = tr.evaluate(params, "test")
-    (out / f"metrics_r{rank}.json").write_text(json.dumps(
-        {str(k): v for k, v in res.items()}, default=float))
+    if mode == "train":
+        adam = import_module(f"{PKG}.ops.adam")
+        inp = np.load(out / "train_inputs.npz")
+        batches = tuple(torch.as_tensor(inp[k], device=dev)
+                        for k in ("users", "pos", "neg", "mask"))
+        for shape in ((1, world), (world, 1)):
+            mesh = mesh_mod.make_mesh(world, shape=shape,
+                                      device_type=dev.type)
+            tr = trainer_mod.RecTrainer(cfg, graph, device=dev, mesh=mesh,
+                                        verbose=False)
+            blocks = tr._pad_params({k: torch.as_tensor(inp[k], device=dev)
+                                     for k in ("user_emb", "item_emb")})
+            opt = adam.adam_init(blocks)
+            losses = tr.run_epoch(blocks, opt, batches)
+            tag = f"{shape[0]}x{shape[1]}"
+            np.save(out / f"train_{tag}_losses_r{rank}.npy",
+                    losses.cpu().numpy())
+            for k, v in tr._trim(blocks).items():
+                np.save(out / f"train_{tag}_{k}_r{rank}.npy", v.cpu().numpy())
+                np.save(out / f"train_{tag}_{k}_rows_r{rank}.npy",
+                        np.array(blocks[k].shape))
+    else:
+        mesh = mesh_mod.make_mesh(world, shape=(1, world),
+                                  device_type=dev.type)
+        params = ckpt.load_params_npz(tmp / "best_model.npz", device=dev)
+        for ex in ("halo", "allgather"):
+            tr = trainer_mod.RecTrainer(cfg.replace(sharded_spmm_mode=ex),
+                                        graph, device=dev, mesh=mesh,
+                                        verbose=False)
+            with torch.no_grad():
+                u, i = tr.model.propagate(params)
+            np.save(out / f"{ex}_u_r{rank}.npy", u.cpu().numpy())
+            np.save(out / f"{ex}_i_r{rank}.npy", i.cpu().numpy())
+        res = tr.evaluate(params, "test")
+        (out / f"metrics_r{rank}.json").write_text(json.dumps(
+            {str(k): v for k, v in res.items()}, default=float))
     dist.destroy_process_group()
     print("[mesh worker OK]", flush=True)
     return 0
+
+
+# --------------------------------------------------------------------------
+# phase 16: training on a mesh
+# --------------------------------------------------------------------------
+
+MESH_STEP_ITERS = 5           # CUDA-event loop of a train step, each turn
+
+
+def _no_scatter(step, tag: str) -> None:
+    """A profiled ``step()`` (a window holding the row kernel's records,
+    retaken up to three times) runs no stock scatter: no ``index_put_``,
+    ``index_add_`` or ``indexing_backward_kernel``."""
+    for _ in range(3):
+        names = profiled_op_names(step)
+        if any("rows_kernel" in n for n in names):
+            break
+    else:
+        raise AssertionError(f"{tag}: no profiled window holds the row "
+                             f"kernel's records")
+    bad = sorted(n for n in names if "indexing_backward" in n
+                 or "index_put" in n or "index_add" in n)
+    if bad:
+        raise AssertionError(f"{tag} ran {bad}")
+
+
+def _in_turns(fns: dict, iters: int) -> dict:
+    """Each of ``fns``' CUDA-event ms a call (best of two turns: in order,
+    then in reverse)."""
+    ms = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            ms[name].append(cuda_time_ms(fns[name], iters))
+    return {name: min(v) for name, v in ms.items()}
+
+
+def phase_mesh_train_steps(dev, ctx: dict, parity: dict) -> dict:
+    """Phase 16 (a): sharded train steps on a world of one over NCCL, in
+    process, from phase 7's parameters and batches, against phase 7's
+    one-card kernel path; a profiled step; the step's times beside one
+    card's, and the host cost of its two collectives."""
+    import torch
+    import torch.distributed as dist
+    from importlib import import_module
+    mesh_mod = import_module(f"{PKG}.parallel.mesh")
+    sharding = import_module(f"{PKG}.parallel.sharding")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    adam = import_module(f"{PKG}.ops.adam")
+    graph, cfg = ctx["graph"], ctx["cfg"]
+    K = cfg.num_layers
+    ref, single = parity["_ref"], parity["_trainer"]
+    batches = ref["batches"]
+    S = len(batches)
+    mesh = mesh_mod.make_mesh(1, device_type=dev.type)
+    try:
+        tr = trainer_mod.RecTrainer(cfg, graph, device=dev, mesh=mesh,
+                                    verbose=False)
+
+        def run():
+            blocks = tr._pad_params(_params(ctx, dev))
+            opt = adam.adam_init(blocks)
+            losses = torch.stack([tr.train_step(blocks, opt, *b)
+                                  for b in batches])
+            torch.cuda.synchronize()
+            return tr._trim(blocks), losses
+
+        before = _counts_now()
+        pm, lm = run()
+        # K forward and K backward local sums on each operator, the
+        # propagated and ego tables' batch-row gathers, one Adam launch
+        per_step = {"sharded_spmm": 4 * K, "gather_backward": 4,
+                    "fused_adam": 1}
+        _launched(before, {k: v * S for k, v in per_step.items()},
+                  "mesh train steps")
+        loss_err, p_err, bit = _held(pm, lm, ref, "mesh train steps")
+
+        blocks = tr._pad_params(_params(ctx, dev))
+        opt = adam.adam_init(blocks)
+        p1 = _params(ctx, dev)
+        o1 = adam.adam_init(p1)
+
+        def mesh_step(j=0):
+            tr.train_step(blocks, opt, *batches[j % S])
+
+        def one_step(j=0):
+            single.train_step(p1, o1, *batches[j % S])
+
+        _no_scatter(mesh_step, "a mesh train step")
+        step_ms = _in_turns({"one_card": one_step, "mesh": mesh_step},
+                            MESH_STEP_ITERS)
+        prof = {"mesh": profile_steps(mesh_step),
+                "one_card": profile_steps(one_step)}
+        flat = torch.zeros(sum(v.numel() for v in blocks.values()) + 1,
+                           device=dev)
+        host_us = {"mesh_step": host_us_per_call(mesh_step, 5),
+                   "one_card_step": host_us_per_call(one_step, 5)}
+        with torch.no_grad():
+            host_us["param_all_gather"] = host_us_per_call(
+                lambda: sharding.gather_params(blocks, tr._model_axis,
+                                               tr._rows), 50)
+            host_us["grad_all_reduce"] = host_us_per_call(
+                lambda: dist.all_reduce(flat, group=tr._data_axis.group), 50)
+    finally:
+        dist.destroy_process_group()
+    log(f"[phase 16a] {S} sharded train steps on a world of one (NCCL) vs "
+        f"phase 7's one-card kernel path: losses "
+        f"{[round(float(x), 7) for x in lm]} max diff {loss_err:.3g} (tol "
+        f"{LOSS_ATOL:g}), params max abs diff {p_err:.3g} (tol "
+        f"{TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|ref|), bit-equal: {bit}; "
+        f"launches a step {per_step}; no index_put/index_add/"
+        f"indexing_backward in a profiled step; step ms (CUDA events) mesh "
+        f"{step_ms['mesh']:.3f} one card {step_ms['one_card']:.3f}; device "
+        f"ms a step mesh {prof['mesh']['device_ms'] / 3:.3f} one card "
+        f"{prof['one_card']['device_ms'] / 3:.3f}, host window ms a step "
+        f"mesh {prof['mesh']['window_ms'] / 3:.3f} one card "
+        f"{prof['one_card']['window_ms'] / 3:.3f}; host us a call "
+        + ", ".join(f"{k} {v:.1f}" for k, v in host_us.items()))
+    return {"loss_max_diff": loss_err, "param_max_diff": p_err,
+            "bit_equal": bit, "launches_per_step": per_step,
+            "step_ms": step_ms, "profile": prof, "host_us_per_call": host_us,
+            "_ref": {"params": pm, "losses": lm}}
+
+
+def phase_train_rec_mesh(dev, tmp: Path, ctx: dict, train: dict) -> dict:
+    """Phase 16 (b): the CLI's train-rec --mesh 1 (a world of one over
+    NCCL, in this process so that its launches are counted) for
+    TRAIN_EPOCHS epochs with checkpoints, beside phase 6's one-card run."""
+    import torch
+    from importlib import import_module
+    cli = import_module(f"{PKG}.cli.main")
+    graph, cfg = ctx["graph"], ctx["cfg"]
+    K = cfg.num_layers
+    nb = train["steps_per_epoch"]
+    n_evals = TRAIN_EPOCHS // cfg.eval_every + 1      # val per epoch + test
+    out = tmp / "rec_mesh"
+    # ---- the main path, counted (every kernel's count) ----
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli.run(["train-rec", "--graph", str(tmp / "graph.npz"),
+                   "--preset", "cu_message", "--cred", str(tmp / "cred.csv"),
+                   "--out", str(out), "--checkpoint", "--device", str(dev),
+                   f"epochs={TRAIN_EPOCHS}", "--mesh", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # a step: 4K local sums, 4 gather backwards, 1 Adam; 2K local sums per
+    # evaluation
+    counts = read_counts(
+        {"sharded_spmm": 4 * K * nb * TRAIN_EPOCHS + 2 * K * n_evals,
+         "gather_backward": 4 * nb * TRAIN_EPOCHS,
+         "fused_adam": nb * TRAIN_EPOCHS}, "training mesh path")
+    losses = [h.loss for h in res.history]
+    if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)):
+        raise AssertionError(f"mesh epoch losses {losses}")
+    for name in ("best_model.npz", "test_metrics.json", "metrics.jsonl"):
+        if not (out / name).is_file():
+            raise AssertionError(f"train-rec --mesh 1 wrote no {name}")
+    if not any((out / "ckpt").glob("*.pt")):
+        raise AssertionError("train-rec --mesh 1 wrote no checkpoint")
+    with np.load(out / "best_model.npz") as z:
+        shapes = {k: z[k].shape for k in z.files}
+    if shapes != {"user_emb": (graph.num_users, cfg.emb_dim),
+                  "item_emb": (graph.num_items, cfg.emb_dim)}:
+        raise AssertionError(f"best_model.npz holds {shapes}")
+    written = {int(k): v for k, v in json.loads(
+        (out / "test_metrics.json").read_text()).items()}
+    ev = cli.run(["evaluate", "--graph", str(tmp / "graph.npz"),
+                  "--params", str(out / "best_model.npz"),
+                  "--preset", "cu_message", "--cred", str(tmp / "cred.csv"),
+                  "--split", "test", "--device", str(dev)])
+    err = _metrics_equal(written, ev)
+    one = {int(k): v for k, v in train["test_metrics"].items()}
+    vs_one = {"epoch_loss": max(abs(a - b) for a, b in
+                                zip(losses, train["epoch_losses"])),
+              "test_metrics": max(abs(written[k][m] - one[k][m])
+                                  for k in one
+                                  for m in ("precision", "recall", "ndcg"))}
+    log(f"[phase 16b] train-rec --mesh 1 (a world of one, in process): "
+        f"{TRAIN_EPOCHS} epochs in {wall:.1f}s (phase 6 on one card "
+        f"{train['train_rec_wall_s']:.1f}s), epoch losses "
+        f"{[round(x, 6) for x in losses]}, epoch seconds "
+        f"{[round(h.seconds, 3) for h in res.history]}; launches "
+        f"sharded_spmm {counts['sharded_spmm']} = {4 * K} x {nb} x "
+        f"{TRAIN_EPOCHS} + {2 * K} x {n_evals}, gather_backward "
+        f"{counts['gather_backward']} = 4 x {nb} x {TRAIN_EPOCHS}, "
+        f"fused_adam {counts['fused_adam']}; best_model.npz exact rows; "
+        f"evaluate on it reproduces test_metrics.json (diff {err:.3g}); vs "
+        f"phase 6: epoch loss diff {vs_one['epoch_loss']:.3g}, test "
+        f"metrics diff {vs_one['test_metrics']:.3g}")
+    return {"launches_by_kernel": counts, "train_rec_wall_s": wall,
+            "epoch_losses": losses,
+            "epoch_seconds": [h.seconds for h in res.history],
+            "evaluate_err": err, "vs_one_card": vs_one}
+
+
+def phase_cred_mesh(dev, tmp: Path, jsonl: Path, hg, cred_full: dict
+                    ) -> dict:
+    """Phase 16 (c): Stage A on a world of one over NCCL: full-graph steps
+    in process against phase 12's kernel path, then the CLI's train-cred
+    --mesh 1 in full-graph mode for one epoch, counted."""
+    import torch
+    import torch.distributed as dist
+    from importlib import import_module
+    mesh_mod = import_module(f"{PKG}.parallel.mesh")
+    ct = import_module(f"{PKG}.train.cred_trainer")
+    config = import_module(f"{PKG}.utils.config")
+    adam = import_module(f"{PKG}.ops.adam")
+    cli = import_module(f"{PKG}.cli.main")
+    ref = cred_full["_ref"]
+    steps = ref["steps"]
+    cfg = config.CredConfig(trainer_mode="full_graph", epochs=CRED_EPOCHS)
+    mesh = mesh_mod.make_mesh(1, device_type=dev.type)
+    try:
+        t0 = time.perf_counter()
+        tr = ct.CredTrainer(hg, cfg, device=dev, mesh=mesh, verbose=False)
+        setup = time.perf_counter() - t0
+
+        def run():
+            params = {k: v.clone() for k, v in ref["params0"].items()}
+            opt = adam.adam_init(params)
+            losses = torch.stack([
+                tr.train_step(params, opt, ref["users"][s], ref["mask"][s],
+                              seed_plan=ref["plans"][s]) for s in steps])
+            torch.cuda.synchronize()
+            return params, losses
+
+        before = _counts_now()
+        pm, lm = run()
+        # 4 local sums a step forward (2 views x 2 operators), 4 backward
+        per_step = {"sharded_spmm": 8, "gather_backward": CRED_GATHERS,
+                    "fused_adam": CRED_ADAM}
+        _launched(before, {k: v * len(steps) for k, v in per_step.items()},
+                  "Stage-A mesh steps")
+        loss_err, p_err, bit = _held(pm, lm, ref, "Stage-A mesh steps")
+        params = {k: v.clone() for k, v in ref["params0"].items()}
+        opt = adam.adam_init(params)
+        p1 = {k: v.clone() for k, v in ref["params0"].items()}
+        o1 = adam.adam_init(p1)
+        single = cred_full["_trainer"]
+
+        def mesh_step(j=0):
+            s = steps[j % len(steps)]
+            tr.train_step(params, opt, ref["users"][s], ref["mask"][s],
+                          seed_plan=ref["plans"][s])
+
+        def one_step(j=0):
+            s = steps[j % len(steps)]
+            single.train_step(p1, o1, ref["users"][s], ref["mask"][s],
+                              seed_plan=ref["plans"][s])
+
+        _no_scatter(mesh_step, "a Stage-A mesh step")
+        step_ms = _in_turns({"one_card": one_step, "mesh": mesh_step},
+                            MESH_STEP_ITERS)
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the CLI's train-cred --mesh 1, full graph, counted ----
+    out = tmp / "cred_mesh"
+    nb = cred_steps_per_epoch(hg, cfg.batch_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli.run(["train-cred", "--jsonl", str(jsonl), "--out", str(out),
+                   "--device", str(dev), "--mesh", "1", "epochs=1",
+                   "trainer_mode=full_graph"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # 8 local sums a step, 2 for the holdout evaluation, 2 for the
+    # inference; 5 gather backwards and 1 Adam a step
+    counts = read_counts({"sharded_spmm": 8 * nb + 2 + 2,
+                          "gather_backward": CRED_GATHERS * nb,
+                          "fused_adam": CRED_ADAM * nb},
+                         "cred_full_graph_mesh path")
+    _check_scores(res, hg.num_users, "train-cred --mesh 1", epochs=1)
+    missing = [n for n in CRED_ARTEFACTS if not (out / n).is_file()]
+    if missing:
+        raise AssertionError(f"train-cred --mesh 1 wrote no {missing}")
+    log(f"[phase 16c] Stage A on a world of one (NCCL): {len(steps)} "
+        f"full-graph steps vs phase 12's one-card kernel path: losses "
+        f"{[round(float(x), 7) for x in lm]} max diff {loss_err:.3g} (tol "
+        f"{LOSS_ATOL:g}), params max abs diff {p_err:.3g}, bit-equal: "
+        f"{bit}; launches a step {per_step}; no index_put/index_add/"
+        f"indexing_backward in a profiled step; set-up {setup:.1f}s; step "
+        f"ms mesh {step_ms['mesh']:.3f} one card {step_ms['one_card']:.3f}; "
+        f"train-cred --mesh 1 trainer_mode=full_graph, 1 epoch ({nb} "
+        f"steps): {wall:.1f}s, loss {res.history[0]['loss']:.6f}, holdout "
+        f"AUC {res.history[0]['holdout_auc']:.4f}, scores in [0, 1]; "
+        f"launches sharded_spmm {counts['sharded_spmm']} = 8 x {nb} + 2 + "
+        f"2, gather_backward {counts['gather_backward']}, fused_adam "
+        f"{counts['fused_adam']}")
+    return {"launches_by_kernel": counts, "loss_max_diff": loss_err,
+            "param_max_diff": p_err, "bit_equal": bit,
+            "launches_per_step": per_step, "setup_s": setup,
+            "step_ms": step_ms, "train_cred_wall_s": wall,
+            "history": res.history}
+
+
+def phase_train_two_ranks(tmp: Path, ctx: dict, parity: dict) -> dict:
+    """Phase 16 (d): two ranks of this script on the one card over gloo,
+    each training phase 7's steps on the (1, 2) mesh and then on the
+    (2, 1) mesh in the same process: losses identical on both ranks, and
+    within phase 7's tolerances of its one-card kernel path."""
+    import torch
+    ref = parity["_ref"]
+    out = tmp / "mesh_two"
+    out.mkdir(exist_ok=True)
+    cols = list(zip(*[b[:4] for b in ref["batches"]]))
+    np.savez(out / "train_inputs.npz", **ctx["params_np"],
+             **{k: torch.stack(v).cpu().numpy()
+                for k, v in zip(("users", "pos", "neg", "mask"), cols)})
+    seconds = run_two_ranks(tmp, "train")
+    dev = ref["losses"].device
+    res = {}
+    for tag in (f"1x{MESH_WORKERS}", f"{MESH_WORKERS}x1"):
+        def ld(name, r):
+            return torch.as_tensor(np.load(out / f"train_{tag}_{name}_r{r}.npy"),
+                                   device=dev)
+        losses = [ld("losses", r) for r in range(MESH_WORKERS)]
+        if any(not torch.equal(x, losses[0]) for x in losses):
+            raise AssertionError(f"{tag}: the ranks report different losses")
+        errs = [_held({k: ld(k, r) for k in ref["params"]}, losses[r], ref,
+                      f"two ranks {tag} rank {r}")
+                for r in range(MESH_WORKERS)]
+        rows = {k: int(ld(f"{k}_rows", 0)[0]) for k in ref["params"]}
+        res[tag] = {"loss_max_diff": max(e[0] for e in errs),
+                    "param_max_diff": max(e[1] for e in errs),
+                    "bit_equal": all(e[2] for e in errs),
+                    "block_rows": rows}
+    log(f"[phase 16d] {MESH_WORKERS} ranks on one card over gloo, "
+        f"{len(ref['batches'])} steps on the (1, {MESH_WORKERS}) mesh then on "
+        f"the ({MESH_WORKERS}, 1) mesh in each process: losses identical on "
+        f"both ranks; vs phase 7's one-card kernel path "
+        + "; ".join(f"{tag}: losses max diff {r['loss_max_diff']:.3g}, "
+                    f"params max abs diff {r['param_max_diff']:.3g}, "
+                    f"bit-equal {r['bit_equal']}, block rows "
+                    f"{r['block_rows']}" for tag, r in res.items())
+        + f"; {seconds:.1f}s")
+    return {"seconds": seconds, **res}
 
 
 def launches_by_path(paths: dict, name: str) -> dict:
@@ -2474,9 +2879,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every number to this JSON file")
-    ap.add_argument("--mesh-worker", nargs=3, default=None,
-                    metavar=("RANK", "WORLD", "DIR"),
-                    help="internal: one rank of phase 15's part (b)")
+    ap.add_argument("--mesh-worker", nargs=4, default=None,
+                    metavar=("RANK", "WORLD", "DIR", "MODE"),
+                    help="internal: one rank of phase 15's part (b) (MODE "
+                         "serve) or of phase 16's part (d) (MODE train)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2485,8 +2891,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     if args.mesh_worker:
-        rank, world, tmp = args.mesh_worker
-        return mesh_worker(int(rank), int(world), Path(tmp))
+        rank, world, tmp, mode = args.mesh_worker
+        return mesh_worker(int(rank), int(world), Path(tmp), mode=mode)
     return run(torch.device("cuda", 0), args.out)
 
 
@@ -2551,7 +2957,9 @@ def run(dev, out_path=None) -> int:
         ctx = res.pop("_ctx")
         train = phase_train(dev, tmp_slice, ctx)
         parity = phase_train_parity(dev, tmp_slice, ctx)
-        times = phase_train_times(dev, ctx, parity.pop("_trainer"))
+        # phase 7's trainer, parameters and batches serve phases 8 and 16
+        p7 = {k: parity.pop(k) for k in ("_trainer", "_ref")}
+        times = phase_train_times(dev, ctx, p7["_trainer"])
         t9 = time.perf_counter()
         chunk = phase_chunk_vs_plain(dev, probe_dirs)
         probes = phase_probes(dev, probe_dirs)
@@ -2572,7 +2980,8 @@ def run(dev, out_path=None) -> int:
             seconds[11] = time.perf_counter() - t
             t = time.perf_counter()
             cred_full = phase_cred_full_graph(dev, hg)
-            tr_full = cred_full.pop("_trainer")
+            c12 = {k: cred_full.pop(k) for k in ("_trainer", "_ref")}
+            tr_full = c12["_trainer"]
             seconds[12] = time.perf_counter() - t
             t = time.perf_counter()
             two_stage = phase_two_stage(dev, tmp, jsonl, cred_dir)
@@ -2580,11 +2989,19 @@ def run(dev, out_path=None) -> int:
             t = time.perf_counter()
             cred_times = phase_cred_times(dev, tmp, jsonl, hg, tr_full)
             seconds[14] = time.perf_counter() - t
-        log("[phases 11-14] seconds " + ", ".join(
-            f"{k}: {v:.1f}" for k, v in seconds.items()))
-        t = time.perf_counter()
-        mesh = phase_serving_mesh(dev, tmp_slice, ctx, res)
-        log(f"[phase 15] done in {time.perf_counter() - t:.1f}s")
+            log("[phases 11-14] seconds " + ", ".join(
+                f"{k}: {v:.1f}" for k, v in seconds.items()))
+            t = time.perf_counter()
+            mesh = phase_serving_mesh(dev, tmp_slice, ctx, res)
+            log(f"[phase 15] done in {time.perf_counter() - t:.1f}s")
+            # ---- phase 16: training on a mesh ----
+            t = time.perf_counter()
+            mesh_steps = phase_mesh_train_steps(dev, ctx, p7)
+            mesh_steps.pop("_ref")
+            rec_mesh = phase_train_rec_mesh(dev, tmp_slice, ctx, train)
+            cred_mesh = phase_cred_mesh(dev, tmp, jsonl, hg, c12)
+            two_train = phase_train_two_ranks(tmp_slice, ctx, p7)
+            log(f"[phase 16] done in {time.perf_counter() - t:.1f}s")
 
     dirs = res["directions"]
     pair = times["adam_pair"]
@@ -2592,15 +3009,18 @@ def run(dev, out_path=None) -> int:
     # every kernel's count, read after each counted path: serving (phase
     # 3), training (phase 6), the probes (phase 10), Stage A in SLAS mode
     # (phase 11) and in full-graph mode (phase 12), serving on a mesh
-    # (phase 15)
+    # (phase 15), training on a mesh (phase 16 (b)) and Stage A's full
+    # graph on a mesh (phase 16 (c))
     paths = {"serving": res["launches_by_kernel"],
              "training": train["launches_by_kernel"],
              "probes": probes["launches"],
              "cred_slas": cred_slas["launches_by_kernel"],
              "cred_full_graph": cred_full["launches_by_kernel"],
-             "serving_mesh": mesh["launches_by_kernel"]}
+             "serving_mesh": mesh["launches_by_kernel"],
+             "training_mesh": rec_mesh["launches_by_kernel"],
+             "cred_full_graph_mesh": cred_mesh["launches_by_kernel"]}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
-                  "serving_mesh")
+                  "serving_mesh", "training_mesh", "cred_full_graph_mesh")
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",
@@ -2684,6 +3104,8 @@ def run(dev, out_path=None) -> int:
              "cred_slas": cred_slas, "cred_full_graph": cred_full,
              "two_stage": two_stage, "cred_times": cred_times,
              "cred_phase_seconds": seconds, "serving_mesh": mesh,
+             "training_mesh": {"steps": mesh_steps, "train_rec": rec_mesh,
+                               "cred": cred_mesh, "two_ranks": two_train},
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},

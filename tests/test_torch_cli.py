@@ -120,8 +120,8 @@ def test_default_device_is_cuda(saved):
 def test_training_commands_not_registered():
     """Both training commands are registered now: train-cred (Stage A) and
     train-rec parse with the JAX command's flags and default to the card;
-    train-cred's --mesh raises (Stage A under a mesh is ROADMAP.md Queue 1
-    item 11c), as train-rec's does (11b)."""
+    train-cred's --mesh N needs N processes, as train-rec's and evaluate's
+    do: without a launcher it names torchrun."""
     ap = t_cli.build_parser()
     args = ap.parse_args(["train-cred", "--jsonl", "r.jsonl", "--out", "d",
                           "--plots", "--checkpoint", "--resume",
@@ -133,9 +133,10 @@ def test_training_commands_not_registered():
     assert args.overrides == ["epochs=2", "trainer_mode=full_graph"]
     with pytest.raises(SystemExit):
         ap.parse_args(["train-cred", "--out", "d"])      # --jsonl required
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2 "
+                                           "-m .* train-cred"):
         t_cli.run(["train-cred", "--jsonl", "r.jsonl", "--out", "d",
-                   "--mesh", "all", "--device", "cpu"])
+                   "--mesh", "2", "--device", "cpu"])
     args = ap.parse_args(["train-rec", "--graph", "g.npz"])
     assert args.fn is t_cli.cmd_train_rec and args.device == "cuda"
 
@@ -268,9 +269,75 @@ def test_train_rec_writes_outputs_and_jax_evaluate_agrees(saved, tmp_path,
 
 
 def test_train_rec_mesh_not_supported(saved):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-        t_cli.run(["train-rec", "--graph", str(saved / "graph.npz"),
-                   "--mesh", "all", "--device", "cpu"])
+    """Without a card, a mesh of cards is not supported: --mesh without
+    --device cpu raises before any process group exists (as on one
+    device)."""
+    import torch.distributed as dist
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the mesh runs there")
+    for cmd in (["train-rec", "--graph", str(saved / "graph.npz")],
+                ["train-cred", "--jsonl", "r.jsonl", "--out", "d"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_cli.run(cmd + ["--mesh", "1"])
+        assert not dist.is_initialized()
+
+
+def _port_cli(args):
+    """The port's CLI in a subprocess (so that no process group outlives
+    the test): its stdout."""
+    proc = subprocess.run([sys.executable, "-m", f"{PORT_PKG}.cli", *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+def test_train_rec_mesh_one_matches_single(saved, tmp_path):
+    """``train-rec --mesh 1 --device cpu`` (a world of one over gloo: the
+    sharded step, checkpoints by rank 0) writes the outputs of the
+    one-device command: exact-row tables within 1e-5, test metrics within
+    1e-4, the same epochs."""
+    args = ["train-rec", "--graph", str(saved / "graph.npz"), "--preset",
+            "cu_message", "--checkpoint", "--device", "cpu", "epochs=2",
+            "emb_dim=8", "batch_size=64", "eval_mode=full",
+            "negative_sampler=popmix", "lambda_fair=0.1"]
+    t_cli.run(args + ["--out", str(tmp_path / "one")])
+    out = _port_cli(args + ["--out", str(tmp_path / "mesh"), "--mesh", "1"])
+    assert "mesh: {'data': 1, 'model': 1}" in out
+    assert any((tmp_path / "mesh" / "ckpt").glob("*.pt"))
+    one, mesh = (json.loads((tmp_path / d / "test_metrics.json").read_text())
+                 for d in ("one", "mesh"))
+    for K in one:
+        for m in ("precision", "recall", "ndcg"):
+            assert mesh[K][m] == pytest.approx(one[K][m], abs=1e-4)
+    with np.load(tmp_path / "one" / "best_model.npz") as a, \
+            np.load(tmp_path / "mesh" / "best_model.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].shape == b[k].shape
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-5)
+    epochs = [json.loads(ln)["loss"] for ln in
+              (tmp_path / "mesh" / "metrics.jsonl").read_text().splitlines()
+              if '"epoch"' in ln and '"loss"' in ln]
+    assert len(epochs) == 2 and np.isfinite(epochs).all()
+
+
+def test_train_cred_mesh_one_full_graph(reviews, tmp_path):
+    """``train-cred --mesh 1 --device cpu trainer_mode=full_graph``: Stage A
+    on the edge-sharded operators writes the six artefacts, its scores
+    within 1e-5 of the one-device command's."""
+    args = ["train-cred", "--jsonl", str(reviews), "--device", "cpu",
+            "epochs=2", "hidden_dim=8", "batch_size=16",
+            "trainer_mode=full_graph"]
+    t_cli.run(args + ["--out", str(tmp_path / "one")])
+    out = _port_cli(args + ["--out", str(tmp_path / "mesh"), "--mesh", "1"])
+    assert "mesh: {'data': 1, 'model': 1}" in out
+    assert sorted(p.name for p in (tmp_path / "mesh").iterdir()
+                  if p.is_file()) == CRED_ARTEFACTS
+    one, mesh = (np.load(tmp_path / d / "credibility_scores_minmax.npy")
+                 for d in ("one", "mesh"))
+    assert np.isfinite(mesh).all() and mesh.min() >= 0 and mesh.max() <= 1
+    np.testing.assert_allclose(mesh, one, rtol=0, atol=1e-5)
 
 
 def test_evaluate_mesh_one_matches_single(saved, capsys):

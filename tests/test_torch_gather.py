@@ -263,7 +263,8 @@ def test_stage_a_full_graph_step_gathers_run_the_segment_sum(monkeypatch):
     cfg = CredConfig(trainer_mode="full_graph", hidden_dim=8, batch_size=16)
     tr = CredTrainer(hg, cfg, device="cpu", verbose=False)
     plans = tr.model.views["early"].smooth_plans
-    assert plans[0].indptr is tr.model.views["early"].user_from_item.fwd.indptr
+    assert torch.equal(plans[0].indptr,
+                       tr.model.views["early"].user_from_item.fwd.indptr)
     params, opt, gen = tr.init_state()
     calls = _count_segment_sums(monkeypatch)
     tr.run_epoch(params, opt, gen)

@@ -181,15 +181,25 @@ def test_auto_mode_records_true_halo_h_max():
 
 
 def test_training_under_a_mesh_is_not_ported(small_graph):
-    """The sharded train step is ROADMAP.md Queue 1 item 11b: ``fit`` and
-    ``propagate_rows`` on mesh-sharded operators raise, naming it."""
+    """Training under a mesh is ported (``parallel/sharding.py``, run on
+    gloo ranks by ``tests/test_torch_sharding.py``).  On a host-planning
+    ``ModelAxis``, which has no process group, the trainer plans its
+    operators and shards its tables, and ``fit`` and ``propagate_rows``
+    raise at their first collective, naming the missing group."""
     from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.configs.presets import get_preset
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.models.lightgcn import init_params
     from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.train.trainer import RecTrainer
     cfg = get_preset("cu_message").replace(emb_dim=8)
     tr = RecTrainer(cfg, small_graph, device="cpu", verbose=False,
                     mesh=ModelAxis(1))
     assert tr.model.item_from_user.padded_chain
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
+    blocks = tr.init_state()[0]
+    assert {k: tuple(v.shape) for k, v in blocks.items()} == {
+        "user_emb": (small_graph.num_users, 8),
+        "item_emb": (small_graph.num_items, 8)}
+    with pytest.raises(RuntimeError, match="no process group"):
         tr.fit(epochs=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-        tr.model.propagate_rows({}, torch.arange(2), torch.arange(2))
+    params = init_params(torch.Generator().manual_seed(0), cfg,
+                         small_graph.num_users, small_graph.num_items)
+    with pytest.raises(RuntimeError, match="no process group"):
+        tr.model.propagate_rows(params, torch.arange(2), torch.arange(2))

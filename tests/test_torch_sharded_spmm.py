@@ -19,7 +19,11 @@ small_graph's cu_message item<-user map.  For both exchanges ("halo",
     ``to_padded`` and one ``from_padded`` per table;
 
 and the span layout's round trip and dual-gather gradients are exact.
-Every rank's replicated outputs are identical.
+With bf16 messages (``precision="bf16"``, ``spmm_precision="bf16"``) the
+sharded apply and propagate are bit-equal to the port's one-device bf16
+and within BF16_TOL of JAX's sharded operator, which sums in bf16 where the
+port sums bf16 products in fp32 (ROADMAP's bf16 divergence).  Every rank's
+replicated outputs are identical.
 """
 
 import functools
@@ -47,6 +51,11 @@ WORLDS = (2, 4)
 MAPS = ("hub", "ifu")
 PRESETS = ("cu_message", "vanilla")
 D = 16
+# max |port - JAX| with bf16 messages over the largest |JAX output|: JAX
+# rounds every partial sum to bf16 (8-bit significand), the port once at the
+# end; the hub row's 300 terms reach 0.0226 here, the other maps and the
+# propagates 0.0009-0.0059
+BF16_TOL = 0.03
 
 
 def _maps(small_graph, cred):
@@ -111,12 +120,21 @@ def jax_ref(case, small_graph):
             f = jax.jit(lambda x, op=op: (
                 op(x), jax.grad(lambda x: jnp.sum(op(x) * g))(x)))
             ref[name, mode] = tuple(np.asarray(a) for a in f(x))
+            ref[name, mode, "bf16"] = np.asarray(
+                jax.jit(op)(x.astype(jnp.bfloat16)).astype(jnp.float32))
     for preset in PRESETS:
         cfg = j_preset(preset).replace(emb_dim=32, num_layers=3)
         params = {k.removeprefix(f"{preset}_"): jnp.asarray(v)
                   for k, v in inp.items() if k.startswith(f"{preset}_")}
         ref[preset] = tuple(np.asarray(a) for a in JLightGCN(
             cfg, small_graph, inp["cred"], backend="xla").propagate(params))
+        for mode in MODES:
+            model = JLightGCN(
+                cfg.replace(spmm_precision="bf16"), small_graph, inp["cred"],
+                operator_factory=functools.partial(JSharded, mesh=mesh,
+                                                   mode=mode))
+            ref[preset, mode, "bf16"] = tuple(
+                np.asarray(a) for a in jax.jit(model.propagate)(params))
     return ref
 
 
@@ -185,12 +203,49 @@ def test_propagate_on_the_padded_chain(case, jax_ref, small_graph, world,
     np.testing.assert_allclose(i, ji, rtol=1e-5, atol=1e-5)
 
 
+def _bf16_close(got, ref):
+    assert np.abs(got - ref).max() <= BF16_TOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("world,mode,name", CASES, ids=IDS)
+def test_bf16_apply_bit_equal_to_one_device_and_close_to_jax(
+        case, jax_ref, world, mode, name):
+    y = case["load"](world, f"apply_{name}_{mode}_bf16")
+    em, inp = case["maps"][name], case["inp"]
+    single = SpmmOperator(em, "cpu", precision="bf16")(
+        torch.as_tensor(inp[f"{name}_x"]).to(torch.bfloat16)).float()
+    assert np.array_equal(y, single.numpy())
+    _bf16_close(y, jax_ref[name, mode, "bf16"])
+
+
+@pytest.mark.parametrize("world,mode,preset", PROP,
+                         ids=[f"w{w}-{m}-{p}" for w, m, p in PROP])
+def test_bf16_propagate_bit_equal_to_one_device_and_close_to_jax(
+        case, jax_ref, small_graph, world, mode, preset):
+    inp = case["inp"]
+    params = {k.removeprefix(f"{preset}_"): torch.as_tensor(v)
+              for k, v in inp.items() if k.startswith(f"{preset}_")}
+    tables = len(params)
+    tag = f"prop_{preset}_{mode}_bf16"
+    assert case["load"](world, f"{tag}_calls").tolist() == [tables, tables]
+    tcfg = t_preset(preset).replace(emb_dim=32, num_layers=3,
+                                    spmm_precision="bf16")
+    ref = TLightGCN(tcfg, small_graph, inp["cred"], device="cpu"
+                    ).propagate(params)
+    for t, r, j in zip("ui", ref, jax_ref[preset, mode, "bf16"]):
+        got = case["load"](world, f"{tag}_{t}")
+        assert np.array_equal(got, r.numpy())
+        _bf16_close(got, j)
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_every_rank_reports_the_same(case, world):
     names = ([f"{k}_{n}_{m}" for k in ("apply", "grad") for n in MAPS
               for m in MODES]
-             + [f"prop_{p}_{m}_{t}" for p in PRESETS for m in MODES
-                for t in "ui"] + ["span_back", "span_grad_x"])
+             + [f"apply_{n}_{m}_bf16" for n in MAPS for m in MODES]
+             + [f"prop_{p}_{m}{b}_{t}" for p in PRESETS for m in MODES
+                for b in ("", "_bf16") for t in "ui"]
+             + ["span_back", "span_grad_x"])
     for name in names:
         first = case["load"](world, name)
         for r in range(1, world):

@@ -175,3 +175,37 @@ def test_every_rank_reports_the_same(case, world):
                 assert other == first, name
             else:
                 assert np.array_equal(other, first), name
+
+
+def test_topk_on_a_new_mesh_uses_its_live_group(monkeypatch):
+    """Two meshes made in turn in one process, the process group destroyed
+    between them (ROADMAP F5): the second mesh's top-k gathers over its own
+    model group, not over the destroyed one, and ranks as a dense top-k."""
+    import torch.distributed as dist
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.eval.retrieval import topk_for_users
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.parallel import mesh as mesh_mod
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.parallel import sharded_topk
+    groups = []
+    gather = sharded_topk._all_gather_into
+
+    def spy(out, x, group):
+        groups.append(group)
+        gather(out, x, group)
+    monkeypatch.setattr(sharded_topk, "_all_gather_into", spy)
+    rng = np.random.default_rng(4)
+    ue = torch.as_tensor(rng.normal(size=(20, 8)).astype(np.float32))
+    ie = torch.as_tensor(rng.normal(size=(37, 8)).astype(np.float32))
+    users = torch.arange(6)
+    want = torch.topk(ue[users] @ ie.T, 5, dim=1).indices
+    assert not dist.is_initialized()
+    try:
+        for _ in range(2):
+            mesh = mesh_mod.make_mesh(1, device_type="cpu")
+            _, ids = topk_for_users(ue, ie, users, 5, mesh=mesh)
+            assert torch.equal(ids, want)
+            assert groups[-1] is mesh_mod.model_group(mesh)
+            dist.destroy_process_group()
+        assert groups[0] is not groups[-1]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
