@@ -6,7 +6,11 @@
 // over the plan of ops/segment_plan.py: destination rows cut into blocks of
 // R rows, each block's dst-sorted edges cut into chunks of T edges (a window
 // plan confines a chunk's rows to W rows from an 8-aligned win_start).  The
-// output is the whole (num_blocks*R, D) fp32 block space.
+// output is the whole (num_blocks*R, D) fp32 block space.  The table x is
+// fp32 or, for P1 and P3, bf16 (the JAX package's msg_dtype="bfloat16",
+// ops/spmm_pallas.py:459-460): then the weight is rounded to bf16 too
+// (onehot.astype(msg.dtype), :423), each product bf16(w) * bf16(x) is exact
+// in fp32 and the sums are fp32, as the MXU's fp32 accumulation.
 //
 // Replaces the JAX package's Pallas probe kernels that run such plans:
 //   chunk_spmm_block  (P3) apply_nopad_trunc, scripts/probe_kernel_grid.py:128
@@ -32,9 +36,9 @@
 // that the plain version (ops/chunk_spmm.py) and its tests hold the kernel
 // to bit for bit.
 //
-// All three entries run chunk_staged_kernel, one template (WINDOW, and TL
-// the local-id type: int32_t, or int16_t for P2), one launch per
-// application.
+// All three entries run chunk_staged_kernel, one template (WINDOW, TL the
+// local-id type: int32_t, or int16_t for P2, and XT the table's type: float,
+// or __nv_bfloat16 for P1 and P3), one launch per application.
 //   * A persistent grid (the SMs times the CTAs that fit on one: three at
 //     T = 256) walks items, (chunk g = blockIdx.x + k*gridDim.x, column tile
 //     of CW fp32).  While a CTA sums one item, the next item's source rows
@@ -57,7 +61,10 @@
 //     16-byte aligned or a D that is not a multiple of 4 (the wrapper
 //     decides, the C entry refuses a wrong choice); the pad tail is never
 //     read.  A buffer is 32 KB: CW = 32 at T = 256 (D = 64 in two tiles),
-//     at most 64, at least 8 (T = 1024), so any D <= 256 fits.
+//     at most 64, at least 8 (T = 1024), so any D <= 256 fits.  A bf16 table
+//     is staged as it is, in half the bytes (8-byte copies of 4 columns, or
+//     plain 2-byte loads when D % 4 or the table is not 8-byte aligned), and
+//     each value is widened to fp32 (exact) where the sums read it.
 //   * Threads map to (run, 16-byte column run) pairs: at CW = 32, 8 threads
 //     a run and 32 runs at a time.  Each sums its run in edge order from 0
 //     with __fmul_rn / __fadd_rn from shared memory: a 256-edge hub run is
@@ -83,6 +90,7 @@
 //     a real row, and 0 * inf is NaN.  The chunk's pad edges must form its
 //     tail (the planner's layout).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,10 +129,10 @@ __host__ __device__ constexpr int stage_bytes(int T, int tl) {
   return (lid_bytes(T, tl) + 8 * T + kMeta * 4 + 15) & ~15;
 }
 
-// dynamic shared memory: two buffers of staged rows (T x CW each), two plan
-// stages, the run starts
-inline size_t staged_smem_bytes(int T, int CW, int tl) {
-  return 2 * (size_t)T * CW * 4 + 2 * (size_t)stage_bytes(T, tl) + ((size_t)T + 1) * 4;
+// dynamic shared memory: two buffers of staged rows (T x CW values of xs
+// bytes each), two plan stages, the run starts
+inline size_t staged_smem_bytes(int T, int CW, int tl, int xs) {
+  return 2 * (size_t)T * CW * xs + 2 * (size_t)stage_bytes(T, tl) + ((size_t)T + 1) * 4;
 }
 constexpr size_t kMaxBufFloats = kBufFloats > 8 * kMaxT ? kBufFloats : 8 * kMaxT;
 constexpr size_t kMaxStagedSmem =
@@ -136,6 +144,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* s, const void* g) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(smem_addr(s)), "l"(g) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* s, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_addr(s)), "l"(g) : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(void* s, const void* g) {
@@ -269,10 +281,27 @@ __device__ __forceinline__ void store_cols(float* out, float4 v, int n, bool vec
   if (n > 3) stream ? __stcs(out + 3, v.w) : __stcg(out + 3, v.w);
 }
 
+// four staged values from 4 * i on (16-byte aligned for fp32, 8 for bf16),
+// as fp32
+__device__ __forceinline__ float4 load4(const float* buf, int i) {
+  return reinterpret_cast<const float4*>(buf)[i];
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* buf, int i) {
+  const uint2 r = reinterpret_cast<const uint2*>(buf)[i];
+  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+}
+
+// an edge's weight as the sum multiplies it: rounded to bf16 for a bf16 table
+__device__ __forceinline__ float msg_weight(float w, const float*) { return w; }
+__device__ __forceinline__ float msg_weight(float w, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
 // column tile [c0, c0 + cw) of chunk's real source rows into a buffer
-template <bool XVEC, typename TL>
-__device__ __forceinline__ void stage_rows(float* buf, const TL* s_lid, const int32_t* s_src,
-                                           const float* __restrict__ x, int T, int limit, int D,
+template <bool XVEC, typename TL, typename XT>
+__device__ __forceinline__ void stage_rows(XT* buf, const TL* s_lid, const int32_t* s_src,
+                                           const XT* __restrict__ x, int T, int limit, int D,
                                            int CW, int c0) {
   const int cw = D - c0 < CW ? D - c0 : CW;
   // a thread keeps one 16-byte column run (or column) of every per-th edge
@@ -282,9 +311,14 @@ __device__ __forceinline__ void stage_rows(float* buf, const TL* s_lid, const in
   if (e0 >= per) return;
   for (int e = e0; e < T; e += per) {
     if (s_lid[e] >= limit) break;  // the pad tail
-    const float* from = x + (int64_t)s_src[e] * D + c0;
+    const XT* from = x + (int64_t)s_src[e] * D + c0;
+    if constexpr (sizeof(XT) == 2) {
+      if (XVEC) cp_async8(buf + e * CW + 4 * q, from + 4 * q);
+      else buf[e * CW + q] = from[q];
+    } else {
     if (XVEC) cp_async16(buf + e * CW + 4 * q, from + 4 * q);
     else cp_async4(buf + e * CW + q, from + q);
+    }
   }
 }
 
@@ -319,7 +353,8 @@ __device__ __forceinline__ void reduce_span(const float* carry_val, float* y, in
   }
 }
 
-// XVEC: x is 16-byte aligned and D % 4 == 0 (16-byte staging copies);
+// XVEC: x is 16-byte aligned (8 for bf16) and D % 4 == 0 (staging copies of
+// 4 columns);
 // y and carry_val are 16-byte aligned, so rows are stored 16 bytes at a
 // time whenever D % 4 == 0.  bulk: T * sizeof(TL) % 16 == 0 and the plan
 // arrays are 16-byte aligned (the plan arrives by bulk copies).
@@ -328,13 +363,13 @@ __device__ __forceinline__ void reduce_span(const float* carry_val, float* y, in
 // order.  While it sums item i from one buffer, item i+1's source rows are
 // in flight into the other; the plan of chunk k+2 is fetched when chunk k
 // is done.
-template <bool WINDOW, bool XVEC, typename TL>
+template <bool WINDOW, bool XVEC, typename TL, typename XT>
 __global__ void __launch_bounds__(kThreads, 3)
-chunk_staged_kernel(Plan<TL> plan, const float* __restrict__ x, float* y, float* carry_val,
+chunk_staged_kernel(Plan<TL> plan, const XT* __restrict__ x, float* y, float* carry_val,
                     int32_t* counter, int G, int T, int R, int W, int D, int CW, int bulk) {
   extern __shared__ __align__(16) unsigned char s_raw[];
-  float* s_buf = reinterpret_cast<float*>(s_raw);                 // 2 x T x CW
-  unsigned char* s_plan = s_raw + 2 * (size_t)T * CW * 4;        // 2 stages
+  XT* s_buf = reinterpret_cast<XT*>(s_raw);                       // 2 x T x CW
+  unsigned char* s_plan = s_raw + 2 * (size_t)T * CW * sizeof(XT);  // 2 stages
   int* s_start = reinterpret_cast<int*>(s_plan + 2 * stage_bytes(T, sizeof(TL)));  // T + 1
   __shared__ unsigned s_mask[kMaxT / 32];
   __shared__ int s_off[kMaxT / 32];
@@ -461,7 +496,7 @@ chunk_staged_kernel(Plan<TL> plan, const float* __restrict__ x, float* y, float*
       const int cw = D - c0 < CW ? D - c0 : CW;
       const int nq = (cw + 3) >> 2;
       // the next item's rows into the other buffer (its chunk's plan first)
-      float* nbuf = s_buf + (size_t)((item + 1) & 1) * T * CW;
+      XT* nbuf = s_buf + (size_t)((item + 1) & 1) * T * CW;
       if (j + 1 < ntile) {
         stage_rows<XVEC>(nbuf, s_lid, stg.src(), x, T, limit, D, CW, c0 + CW);
       } else if (g + stride < G) {
@@ -473,18 +508,18 @@ chunk_staged_kernel(Plan<TL> plan, const float* __restrict__ x, float* y, float*
       cp_async_commit();
       cp_async_wait_prior();
       __syncthreads();
-      const float4* s_x4 = reinterpret_cast<const float4*>(s_buf + (size_t)(item & 1) * T * CW);
+      const XT* s_x = s_buf + (size_t)(item & 1) * T * CW;
       const int rper = kThreads / nq;
       const int r0 = tid / nq, q = tid - r0 * nq;
       for (int r = r0; r < nr && r0 < rper; r += rper) {
         const int beg = s_start[r];
         const int end = r + 1 < nr ? s_start[r + 1] : nvalid;
         float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4* xs = s_x4 + q;
+        const XT* xs = s_x + 4 * q;
 #pragma unroll 4
         for (int e = beg; e < end; ++e) {
-          const float wv = s_w[e];
-          const float4 v = xs[e * cq];
+          const float wv = msg_weight(s_w[e], xs);
+          const float4 v = load4(xs, e * cq);
           acc.x = __fadd_rn(acc.x, __fmul_rn(wv, v.x));
           acc.y = __fadd_rn(acc.y, __fmul_rn(wv, v.y));
           acc.z = __fadd_rn(acc.z, __fmul_rn(wv, v.z));
@@ -539,9 +574,9 @@ std::atomic<bool> g_ready[kMaxDevices];
 std::mutex g_mutex;
 std::map<std::tuple<int, const void*, size_t>, int> g_fit;  // CTAs a SM by (device, kernel, smem)
 
-template <bool WINDOW, bool XVEC, typename TL>
+template <bool WINDOW, bool XVEC, typename TL, typename XT>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(chunk_staged_kernel<WINDOW, XVEC, TL>,
+  return cudaFuncSetAttribute(chunk_staged_kernel<WINDOW, XVEC, TL, XT>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxStagedSmem);
 }
 
@@ -552,12 +587,16 @@ const DeviceSetup& device_setup(int device) {
   DeviceSetup& s = g_setup[device];
   if (g_ready[device].load(std::memory_order_relaxed)) return s;
   cudaError_t err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = allow_smem<false, false, int32_t>();
-  if (err == cudaSuccess) err = allow_smem<false, true, int32_t>();
-  if (err == cudaSuccess) err = allow_smem<true, false, int32_t>();
-  if (err == cudaSuccess) err = allow_smem<true, true, int32_t>();
-  if (err == cudaSuccess) err = allow_smem<false, false, int16_t>();
-  if (err == cudaSuccess) err = allow_smem<false, true, int16_t>();
+  if (err == cudaSuccess) err = allow_smem<false, false, int32_t, float>();
+  if (err == cudaSuccess) err = allow_smem<false, true, int32_t, float>();
+  if (err == cudaSuccess) err = allow_smem<true, false, int32_t, float>();
+  if (err == cudaSuccess) err = allow_smem<true, true, int32_t, float>();
+  if (err == cudaSuccess) err = allow_smem<false, false, int16_t, float>();
+  if (err == cudaSuccess) err = allow_smem<false, true, int16_t, float>();
+  if (err == cudaSuccess) err = allow_smem<false, false, int32_t, __nv_bfloat16>();
+  if (err == cudaSuccess) err = allow_smem<false, true, int32_t, __nv_bfloat16>();
+  if (err == cudaSuccess) err = allow_smem<true, false, int32_t, __nv_bfloat16>();
+  if (err == cudaSuccess) err = allow_smem<true, true, int32_t, __nv_bfloat16>();
   s.err = err;
   g_ready[device].store(true, std::memory_order_release);
   return s;
@@ -577,13 +616,13 @@ cudaError_t ctas_per_sm(int device, K kernel, size_t smem, int* fit) {
   return err;
 }
 
-template <bool WINDOW, bool XVEC, typename TL>
-cudaError_t launch_staged(const Plan<TL>& plan, const float* x, float* y, float* carry_val,
+template <bool WINDOW, bool XVEC, typename TL, typename XT>
+cudaError_t launch_staged(const Plan<TL>& plan, const XT* x, float* y, float* carry_val,
                           int32_t* counter, int G, int T, int R, int W, int D, int bulk,
                           int device, const DeviceSetup& s, cudaStream_t st) {
   const int CW = column_tile(T, D);
-  const size_t smem = staged_smem_bytes(T, CW, sizeof(TL));
-  auto kernel = chunk_staged_kernel<WINDOW, XVEC, TL>;
+  const size_t smem = staged_smem_bytes(T, CW, sizeof(TL), sizeof(XT));
+  auto kernel = chunk_staged_kernel<WINDOW, XVEC, TL, XT>;
   int fit = 0;
   cudaError_t err = ctas_per_sm(device, kernel, smem, &fit);
   if (err != cudaSuccess) return err;
@@ -596,8 +635,8 @@ cudaError_t launch_staged(const Plan<TL>& plan, const float* x, float* y, float*
 }
 
 // the launch for a plan's id type: window plans have int32 ids
-template <typename TL>
-cudaError_t launch_plan(const Plan<TL>& plan, const float* x, float* y, float* carry_val,
+template <typename TL, typename XT>
+cudaError_t launch_plan(const Plan<TL>& plan, const XT* x, float* y, float* carry_val,
                         int32_t* counter, int G, int T, int R, int W, int D, int vec, int bulk,
                         int device, const DeviceSetup& s, cudaStream_t st) {
   if constexpr (sizeof(TL) == 4) {
@@ -614,19 +653,20 @@ cudaError_t launch_plan(const Plan<TL>& plan, const float* x, float* y, float* c
 }
 
 // the entry of P1 (W > 0), P2 (int16 ids: tl == 2) and P3: checks, the
-// device, the counters, one launch
+// device, the counters, one launch; bf16: x is a bf16 table (P1 and P3)
 int staged_entry(bool window, int tl, const void* src, const void* w, const void* lid,
                  const void* meta, const void* x, void* y, void* carry_val, void* counter, int G,
-                 int T, int R, int W, int D, int vec, int device, void* stream) {
+                 int T, int R, int W, int D, int vec, int bf16, int device, void* stream) {
   if (G <= 0 || T <= 0 || T > kMaxT || D <= 0 || D > 256 || R <= 0 || device < 0 ||
       device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   if (window ? (W <= 0 || W >= R) : (W != 0)) return (int)cudaErrorInvalidValue;
   // int16 ids: full-block plans whose pad id R fits
-  if (tl != 4 && (tl != 2 || window || R > INT16_MAX)) return (int)cudaErrorInvalidValue;
+  if (tl != 4 && (tl != 2 || window || R > INT16_MAX || bf16)) return (int)cudaErrorInvalidValue;
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  // a 16-byte load path asked for a table it cannot read is refused
-  if (vec && (D % 4 != 0 || !aligned(x))) return (int)cudaErrorInvalidValue;
+  // a 4-column load path asked for a table it cannot read is refused
+  const bool x_aligned = reinterpret_cast<uintptr_t>(x) % (bf16 ? 8 : 16) == 0;
+  if (vec && (D % 4 != 0 || !x_aligned)) return (int)cudaErrorInvalidValue;
   if (D % 4 == 0 && !(aligned(y) && aligned(carry_val))) return (int)cudaErrorInvalidValue;
   const int bulk =
       T * tl % 16 == 0 && aligned(src) && aligned(w) && aligned(lid) && aligned(meta);
@@ -642,16 +682,20 @@ int staged_entry(bool window, int tl, const void* src, const void* w, const void
     const int32_t* sp = static_cast<const int32_t*>(src);
     const float* wp = static_cast<const float*>(w);
     const int32_t* mp = static_cast<const int32_t*>(meta);
-    const float* xp = static_cast<const float*>(x);
     float* yp = static_cast<float*>(y);
     float* cv = static_cast<float*>(carry_val);
     int32_t* cn = static_cast<int32_t*>(counter);
+    const Plan<int32_t> p32{sp, wp, static_cast<const int32_t*>(lid), mp};
     if (tl == 2)
-      err = launch_plan(Plan<int16_t>{sp, wp, static_cast<const int16_t*>(lid), mp}, xp, yp, cv,
-                        cn, G, T, R, 0, D, vec, bulk, device, s, st);
+      err = launch_plan(Plan<int16_t>{sp, wp, static_cast<const int16_t*>(lid), mp},
+                        static_cast<const float*>(x), yp, cv, cn, G, T, R, 0, D, vec, bulk,
+                        device, s, st);
+    else if (bf16)
+      err = launch_plan(p32, static_cast<const __nv_bfloat16*>(x), yp, cv, cn, G, T, R, W, D, vec,
+                        bulk, device, s, st);
     else
-      err = launch_plan(Plan<int32_t>{sp, wp, static_cast<const int32_t*>(lid), mp}, xp, yp, cv,
-                        cn, G, T, R, W, D, vec, bulk, device, s, st);
+      err = launch_plan(p32, static_cast<const float*>(x), yp, cv, cn, G, T, R, W, D, vec, bulk,
+                        device, s, st);
   }
   if (current != device) cudaSetDevice(current);
   return (int)err;
@@ -663,28 +707,31 @@ int staged_entry(bool window, int tl, const void* src, const void* w, const void
 // counters zeroed before it).  lid is the plan's int32 local ids, meta the
 // (G, 8) int32 chunk table of ops/segment_plan.py chunk_meta; carry_val
 // (2G, D) fp32 and counter (G,) int32 are scratch; y is the
-// (num_blocks*R, D) fp32 block space.  vec = 1: x is 16-byte aligned and
-// D % 4 == 0 (refused otherwise).  Returns the first error (0 = launched).
+// (num_blocks*R, D) fp32 block space.  bf16 = 1: x is a bf16 table.
+// vec = 1: x is 16-byte aligned (8 for bf16) and D % 4 == 0 (refused
+// otherwise).  Returns the first error (0 = launched).
 extern "C" int chunk_spmm_block(const void* src, const void* w, const void* lid, const void* meta,
                                 const void* x, void* y, void* carry_val, void* counter, int G,
-                                int T, int R, int D, int vec, int device, void* stream) {
+                                int T, int R, int D, int vec, int bf16, int device,
+                                void* stream) {
   return staged_entry(false, 4, src, w, lid, meta, x, y, carry_val, counter, G, T, R, 0, D, vec,
-                      device, stream);
+                      bf16, device, stream);
 }
 
 // P1: the same for window chunks of W rows
 extern "C" int chunk_spmm_window(const void* src, const void* w, const void* lid,
                                  const void* meta, const void* x, void* y, void* carry_val,
                                  void* counter, int G, int T, int R, int W, int D, int vec,
-                                 int device, void* stream) {
+                                 int bf16, int device, void* stream) {
   return staged_entry(true, 4, src, w, lid, meta, x, y, carry_val, counter, G, T, R, W, D, vec,
-                      device, stream);
+                      bf16, device, stream);
 }
 
-// P2: the same as P3 with int16 local ids (R <= 32767)
+// P2: the same as P3 with int16 local ids (R <= 32767), fp32 tables only
+// (bf16 must be 0)
 extern "C" int chunk_spmm_i16(const void* src, const void* w, const void* lid, const void* meta,
                               const void* x, void* y, void* carry_val, void* counter, int G,
-                              int T, int R, int D, int vec, int device, void* stream) {
+                              int T, int R, int D, int vec, int bf16, int device, void* stream) {
   return staged_entry(false, 2, src, w, lid, meta, x, y, carry_val, counter, G, T, R, 0, D, vec,
-                      device, stream);
+                      bf16, device, stream);
 }

@@ -31,8 +31,9 @@ import torch
 from ..graph.build import BipartiteGraph
 from ..graph.operators import EdgeMap, build_edge_maps
 from ..ops.gather import GatherPlan, gather_rows
+from ..ops.segment_plan import PadLayout
 from ..ops.spmm import SpmmOperator
-from ..utils.config import RecConfig
+from ..utils.config import RecConfig, kernel_backend
 
 Params = Dict[str, torch.Tensor]
 
@@ -86,7 +87,9 @@ class LightGCN:
                  cred: Optional[np.ndarray] = None, device="cuda",
                  operator_factory=None):
         """``operator_factory(edge_map) -> operator`` lets the same model run
-        on single-device ``SpmmOperator``s (default) or mesh-sharded ones
+        on single-device ``SpmmOperator``s (default, on ``cfg.spmm_backend``:
+        under "chunked" on chunk plans, whose padded chain
+        :meth:`_padded_chain` takes) or mesh-sharded ones
         (``parallel/sharded_spmm.ShardedSpmmOperator`` via
         ``functools.partial``)."""
         cfg.validate()
@@ -124,11 +127,12 @@ class LightGCN:
         return torch.cat([params["user_emb"], params["item_emb"]], dim=0)
 
     def _padded_chain(self):
-        """Mesh-sharded operators expose padded span layouts
-        (``parallel/sharded_spmm.py``); when the chain's layouts line up,
-        the whole K-layer propagation stays in padded row-sharded form and
-        converts dense<->padded once per table and call instead of once
-        per operator."""
+        """Chunked operators expose tail-padded ``PadLayout``s and
+        mesh-sharded ones padded span layouts (``parallel/sharded_spmm.py``);
+        when the chain's layouts line up, the whole K-layer propagation
+        stays in padded form (row-sharded on a mesh) and converts
+        dense<->padded once per table and call instead of once per
+        operator."""
         if self.cfg.propagation == "symmetric":
             op = self.joint_op
             if getattr(op, "padded_chain", False) and \
@@ -142,6 +146,18 @@ class LightGCN:
                 and b.dst_layout.equals(a.src_layout)):
             return (a, b)
         return None
+
+    def gather_table_rows(self) -> Tuple[int, int]:
+        """The rows of the user and of the item tables whose rows
+        :meth:`propagate_rows` gathers with a step's plans: the padded
+        tables of a single-device bipartite chain, else the exact ones
+        (the joint chain reads the exact-row views of its padded table; a
+        mesh's chain takes no plans)."""
+        chain = self._padded_chain()
+        if (chain is None or self.cfg.propagation == "symmetric"
+                or not isinstance(chain[0].src_layout, PadLayout)):
+            return self.num_users, self.num_items
+        return chain[0].src_layout.padded_rows, chain[1].src_layout.padded_rows
 
     def _bipartite_step(self, u: torch.Tensor, i: torch.Tensor,
                         apply_ifu=None, apply_ufi=None):
@@ -202,22 +218,25 @@ class LightGCN:
         Row-gather commutes with the per-layer accumulation bit-exactly
         (``(sum_k x_k)[r] == sum_k x_k[r]`` elementwise, same fp order), so
         a caller that needs a few rows skips the full-size combined tables.
-        ``plans`` (of ``user_rows`` into the user rows and of ``item_rows``
-        into the item rows, ``ops/gather.py``) give every layer's gathers
-        the segment-sum backward; without them they are plain ``x[rows]``.
+        ``plans`` (of ``user_rows`` and ``item_rows`` into the tables of
+        :meth:`gather_table_rows` rows, ``ops/gather.py``) give every
+        layer's gathers the segment-sum backward; without them they are
+        plain ``x[rows]``.
 
-        On mesh-sharded operators whose span layouts chain
-        (:meth:`_padded_chain`) the layers stay in padded form, and each
-        layer's rows are read at their slots of the whole padded table
-        (``SpanLayout.rows_of``: row -> slot through ``fwd``, the JAX
-        package's ``_slot``); ``plans`` do not apply there.  The sharded
-        train step does not come here: it combines whole tables, as the JAX
-        package's mesh path does.
+        On chunked operators whose tail-padded layouts chain the layers stay
+        in padded form and each layer's rows are read from the padded
+        tables (``PadLayout.rows_of``, a row's slot is the row; the joint
+        table through its exact-row views).  On mesh-sharded operators whose
+        span layouts chain each layer's rows are read at their slots of the
+        whole padded table (``SpanLayout.rows_of``: row -> slot through
+        ``fwd``, the JAX package's ``_slot``); ``plans`` do not apply there.
+        The sharded train step does not come here: it combines whole tables,
+        as the JAX package's mesh path does.
         """
         K = self.cfg.num_layers
         prop_dtype = self._prop_dtype()
         p_u, p_i = plans or (None, None)
-        bk = self.cfg.spmm_backend
+        bk = kernel_backend(self.cfg.spmm_backend)
         chain = self._padded_chain()
 
         def rows(u, i):
@@ -228,18 +247,19 @@ class LightGCN:
         if self.cfg.propagation == "symmetric":
             x = self._joint_table(params).to(prop_dtype)
             apply_j = self.joint_op
+
+            def rows_j(x):
+                return rows(x[:U], x[U:U + self.num_items])
             if chain is not None:
                 lay = chain.src_layout
                 x = lay.to_padded(x)
                 apply_j = chain.apply_padded
-                ids = torch.cat([user_rows, item_rows + U])
+                if not isinstance(lay, PadLayout):
+                    ids = torch.cat([user_rows, item_rows + U])
 
-                def rows_j(x):
-                    r = lay.rows_of(x, ids).float()
-                    return r[:user_rows.numel()], r[user_rows.numel():]
-            else:
-                def rows_j(x):
-                    return rows(x[:U], x[U:])
+                    def rows_j(x):
+                        r = lay.rows_of(x, ids).float()
+                        return r[:user_rows.numel()], r[user_rows.numel():]
             au, ai = rows_j(x)
             for _ in range(K):
                 x = apply_j(x)
@@ -256,10 +276,15 @@ class LightGCN:
             u = ifu.src_layout.to_padded(u)
             i = ufi.src_layout.to_padded(i)
             applies = (ifu.apply_padded, ufi.apply_padded)
-
-            def read(u, i):
-                return (ifu.src_layout.rows_of(u, user_rows).float(),
-                        ufi.src_layout.rows_of(i, item_rows).float())
+            lu, li = ifu.src_layout, ufi.src_layout
+            if isinstance(lu, PadLayout):
+                def read(u, i):
+                    return (lu.rows_of(u, user_rows, p_u, bk).float(),
+                            li.rows_of(i, item_rows, p_i, bk).float())
+            else:
+                def read(u, i):
+                    return (lu.rows_of(u, user_rows).float(),
+                            li.rows_of(i, item_rows).float())
         au, ai = read(u, i)
         for _ in range(K):
             u, i = self._bipartite_step(u, i, *applies)

@@ -10,12 +10,18 @@ and ``apply_nopad_trunc``).
 (``ops/chunk_spmm_cuda.py``) follow: within a chunk each row's run of edges
 is summed in edge order from 0, and a row's chunk partials are summed in
 chunk order from 0.  Two ordered ``index_add_`` passes give exactly that on
-the CPU.  Pad edges are dropped, never multiplied by their zero weight.
+the CPU.  Pad edges are dropped, never multiplied by their zero weight.  A
+bf16 table follows the Pallas kernel's ``msg_dtype="bfloat16"``: the
+weights are rounded to bf16 too (``onehot.astype(msg.dtype)``,
+``JAX: ops/spmm_pallas.py:423``), each product is taken in fp32 and the
+sums are fp32.
 
 The wrappers take the kernel for a CUDA tensor under ``backend="auto"`` (or
 raise) and the plain version for a CPU tensor or ``backend="torch"``:
 
-* :func:`chunk_spmm_blocks` returns the raw block space;
+* :func:`chunk_spmm_blocks` returns the raw block space, or writes it into
+  ``out`` (a row range of a larger block space: the slices of one
+  direction, ``ops/spmm.py``);
 * :func:`apply_chunked` truncates it to ``num_dst`` rows (``apply_pallas``);
 * :func:`apply_chunked_padded` keeps the block space, for a chain whose
   source table is padded to the block grid (``apply_pallas_padded``).
@@ -23,13 +29,16 @@ raise) and the plain version for a CPU tensor or ``backend="torch"``:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .chunk_spmm_cuda import KERNEL_BLOCK, KERNEL_I16, KERNEL_WINDOW
 from .segment_plan import SegmentPlan
 
 
-def chunk_spmm_reference(plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
+def chunk_spmm_reference(plan: SegmentPlan, x: torch.Tensor,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernels (same order, any device)."""
     R, T = plan.block_rows, plan.chunk_edges
     lid = plan.local_ids.long()
@@ -38,22 +47,31 @@ def chunk_spmm_reference(plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
     row = plan.block_id.long()[g] * R + lid[e]
     if plan.window:
         row += plan.win_start.long()[g]
-    msg = plan.w_padded[e, None] * x.index_select(0, plan.src_padded[e].long())
+    w = plan.w_padded[e]
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    msg = w[:, None] * x.index_select(0, plan.src_padded[e].long()).float()
     new = torch.ones(e.numel(), dtype=torch.bool, device=x.device)
     new[1:] = (g[1:] != g[:-1]) | (row[1:] != row[:-1])
     run = torch.cumsum(new, 0) - 1
     part = torch.zeros(int(new.sum()), x.shape[1], dtype=torch.float32,
                        device=x.device).index_add_(0, run, msg)
-    y = torch.zeros(plan.num_blocks * R, x.shape[1], dtype=torch.float32,
-                    device=x.device)
-    return y.index_add_(0, row[new], part)
+    if out is None:
+        out = torch.empty(plan.num_blocks * R, x.shape[1],
+                          dtype=torch.float32, device=x.device)
+    return out.zero_().index_add_(0, row[new], part)
 
 
-def _kernel(plan: SegmentPlan, lid_dtype: torch.dtype):
-    """The kernel for this plan and id width; raises on a combination no
-    kernel runs, on every device alike."""
+def _kernel(plan: SegmentPlan, lid_dtype: torch.dtype,
+            x_dtype: torch.dtype = torch.float32):
+    """The kernel for this plan, id width and table type; raises on a
+    combination no kernel runs, on every device alike."""
     if lid_dtype not in (torch.int32, torch.int16):
         raise ValueError(f"local ids are int32 or int16, not {lid_dtype}")
+    if x_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be fp32 or bf16, got {x_dtype}")
+    if lid_dtype == torch.int16 and x_dtype != torch.float32:
+        raise ValueError("int16 local ids run with an fp32 table")
     if plan.window:
         if lid_dtype != torch.int32:
             raise ValueError("window plans run with int32 local ids")
@@ -68,17 +86,17 @@ def _kernel(plan: SegmentPlan, lid_dtype: torch.dtype):
 
 def chunk_spmm_blocks(plan: SegmentPlan, x: torch.Tensor,
                       lid_dtype: torch.dtype = torch.int32,
-                      backend: str = "auto") -> torch.Tensor:
-    """The raw ``(num_blocks*R, D)`` fp32 block space.  ``lid_dtype``
-    int16 reads a 2-byte local-id stream (P2; full-block plans only)."""
+                      backend: str = "auto",
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The raw ``(num_blocks*R, D)`` fp32 block space of an fp32 or bf16
+    table, written into ``out`` when it is given.  ``lid_dtype`` int16
+    reads a 2-byte local-id stream (P2; full-block plans, fp32 tables)."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown chunk spmm backend {backend!r}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"x must be fp32, got {x.dtype}")
-    kernel = _kernel(plan, lid_dtype)
+    kernel = _kernel(plan, lid_dtype, x.dtype)
     if backend == "torch" or x.device.type == "cpu":
-        return chunk_spmm_reference(plan, x)
-    return kernel(plan, x)
+        return chunk_spmm_reference(plan, x, out)
+    return kernel(plan, x, out)
 
 
 def apply_chunked(plan: SegmentPlan, x: torch.Tensor,

@@ -21,13 +21,17 @@ integer counter per such row, from the plan's ``chunk_meta()``; no float
 atomics).
 
 Each returns the raw ``(num_blocks*R, D)`` fp32 block space of a
-:class:`~.segment_plan.SegmentPlan`.  The plain version and the wrappers
+:class:`~.segment_plan.SegmentPlan`, into a new tensor or into ``out``.
+:data:`KERNEL_BLOCK` and :data:`KERNEL_WINDOW` take an fp32 or a bf16 table
+(bf16 messages, the weights rounded to bf16, fp32 sums: the Pallas
+kernel's ``msg_dtype="bfloat16"``); :data:`KERNEL_I16` an fp32 one.  The plain version and the wrappers
 that choose between it and these kernels are in ``ops/chunk_spmm.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,9 +45,11 @@ MAX_T = 1024         # the most chunk edges one CTA's run masks cover
 
 def x_load(x: torch.Tensor) -> str:
     """How the staged kernel copies source rows of ``x`` into shared
-    memory: ``"vec"`` (16-byte copies, which need ``x`` 16-byte aligned and
-    D a multiple of 4) or ``"scalar"`` (4-byte copies, any table)."""
-    aligned = x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0
+    memory: ``"vec"`` (copies of 4 columns, which need D a multiple of 4
+    and ``x`` aligned to 4 values: 16 bytes in fp32, 8 in bf16) or
+    ``"scalar"`` (one value at a time, any table)."""
+    aligned = (x.data_ptr() % (4 * x.element_size()) == 0
+               and x.shape[1] % 4 == 0)
     return "vec" if aligned else "scalar"
 
 
@@ -52,15 +58,16 @@ class ChunkSpmmKernel(CudaKernel):
 
     def __init__(self, symbol: str, window: bool, lid_dtype: torch.dtype):
         # src, w, lid, meta, x, y, carry_val, counter; G, T, R, [W], D, vec,
-        # device; stream
+        # bf16, device; stream
         argtypes = ([ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * (7 if window else 6)
+                    + [ctypes.c_int] * (8 if window else 7)
                     + [ctypes.c_void_p])
         super().__init__(SOURCE, symbol, argtypes)
         self.window = window
         self.lid_dtype = lid_dtype
 
-    def _check(self, plan: SegmentPlan, x: torch.Tensor) -> None:
+    def _check(self, plan: SegmentPlan, x: torch.Tensor,
+               out: Optional[torch.Tensor]) -> None:
         dev = x.device
         if dev.type != "cuda":
             raise ValueError(f"{self.symbol} kernel needs CUDA tensors, "
@@ -71,9 +78,12 @@ class ChunkSpmmKernel(CudaKernel):
             raise ValueError(f"{self.symbol} runs "
                              f"{'window' if self.window else 'full-block'} "
                              f"plans; this plan has window={plan.window}")
-        if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-            raise ValueError(f"x must be a contiguous 2-D fp32 tensor; got "
-                             f"{x.dtype} {tuple(x.shape)}")
+        dtypes = ((torch.float32,) if self.lid_dtype == torch.int16
+                  else (torch.float32, torch.bfloat16))
+        if x.dtype not in dtypes or x.dim() != 2 or not x.is_contiguous():
+            raise ValueError(f"{self.symbol} takes a contiguous 2-D "
+                             f"{'/'.join(str(d) for d in dtypes)} tensor; "
+                             f"got {x.dtype} {tuple(x.shape)}")
         if x.shape[0] < plan.num_src:
             raise ValueError(f"x has {x.shape[0]} rows, the plan reads "
                              f"{plan.num_src}")
@@ -84,15 +94,27 @@ class ChunkSpmmKernel(CudaKernel):
                              f"1..{MAX_T}")
         if plan.num_blocks * plan.block_rows >= 2 ** 31:
             raise ValueError("block space too large for int32 row ids")
+        if out is not None:
+            shape = (plan.num_blocks * plan.block_rows, x.shape[1])
+            if out.dtype != torch.float32 or tuple(out.shape) != shape \
+                    or out.device != dev or not out.is_contiguous() \
+                    or out.data_ptr() % 16:
+                raise ValueError(f"out must be a contiguous 16-byte aligned "
+                                 f"fp32 {shape} tensor on {dev}; got "
+                                 f"{out.dtype} {tuple(out.shape)} on "
+                                 f"{out.device}")
 
-    def __call__(self, plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
-        self._check(plan, x)
+    def __call__(self, plan: SegmentPlan, x: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block space of ``plan`` over ``x``, written into ``out``
+        (a row range of a larger block space, say) when it is given."""
+        self._check(plan, x, out)
         dev = x.device
         D = x.shape[1]
         R, T, G = plan.block_rows, plan.chunk_edges, plan.num_chunks
         lid = plan.local_ids_as(self.lid_dtype)
-        y = torch.empty(plan.num_blocks * R, D, dtype=torch.float32,
-                        device=dev)
+        y = out if out is not None else torch.empty(
+            plan.num_blocks * R, D, dtype=torch.float32, device=dev)
         carry_val = torch.empty(2 * G, D, dtype=torch.float32, device=dev)
         counter = torch.empty(G, dtype=torch.int32, device=dev)
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -100,7 +122,8 @@ class ChunkSpmmKernel(CudaKernel):
         self._launch(plan.src_padded.data_ptr(), plan.w_padded.data_ptr(),
                      lid.data_ptr(), plan.chunk_meta().data_ptr(), x.data_ptr(),
                      y.data_ptr(), carry_val.data_ptr(), counter.data_ptr(),
-                     *ints, D, int(x_load(x) == "vec"), dev.index, stream)
+                     *ints, D, int(x_load(x) == "vec"),
+                     int(x.dtype == torch.bfloat16), dev.index, stream)
         return y
 
 

@@ -130,21 +130,24 @@ class _GatherFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx, plan, backend):
         ctx.plan, ctx.backend, ctx.dtype = plan, backend, table.dtype
+        ctx.rows = table.shape[0]
         return table.index_select(0, idx)
 
     @staticmethod
     def backward(ctx, grad):
         p = ctx.plan
-        return segment_spmm(p.indptr, p.src, p.w, grad.contiguous(),
-                            ctx.backend, ctx.dtype, pieces=p.pieces,
-                            kernel=GATHER_KERNEL), None, None, None
+        g = segment_spmm(p.indptr, p.src, p.w, grad.contiguous(), ctx.backend,
+                         ctx.dtype, pieces=p.pieces, kernel=GATHER_KERNEL)
+        return g[:ctx.rows], None, None, None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 plan: Optional[GatherPlan] = None,
                 backend: str = "auto") -> torch.Tensor:
     """``table[idx]`` for a 1-D ``idx``.  With ``plan`` (the plan of this
-    ``idx`` into this table's rows) its backward is the segment-sum: the
+    ``idx`` into this table's rows, or into more rows: a tail-padded table's
+    plan on its exact-row table, whose gradient keeps the leading rows, a
+    view) its backward is the segment-sum: the
     kernel for a CUDA gradient under ``"auto"``, which launches or raises,
     the plain version for a CPU one or under ``backend="torch"``; the
     gradient comes back in the table's dtype (a bf16 table's rows are summed
@@ -153,7 +156,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     if plan is None:
         return table[idx]
     if idx.dim() != 1 or idx.numel() != plan.num_src \
-            or table.shape[0] != plan.num_dst:
+            or table.shape[0] > plan.num_dst:
         raise ValueError(
             f"the plan gathers {plan.num_src} ids from {plan.num_dst} rows; "
             f"got {tuple(idx.shape)} ids from {table.shape[0]} rows")

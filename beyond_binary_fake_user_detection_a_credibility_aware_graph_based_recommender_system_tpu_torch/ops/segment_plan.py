@@ -12,6 +12,9 @@ the vectorized greedy ``_build_window``, ``auto_window``), so the arrays are
 equal to ``build_pallas_segment_plan``'s.  :class:`SegmentPlan` holds them
 as torch tensors on one device; the kernels that run a plan are in
 ``ops/chunk_spmm.py``.
+:func:`build_sliced_segment_plans` cuts one direction into destination
+slices on block-aligned cuts (``JAX: build_sliced_segment_plans``), and
+:class:`PadLayout` is the tail-padded layout of a chain of such plans.
 
 Pad edges carry ``local_id == R`` (plain) or ``== W`` (window), weight 0 and
 source 0, and sit at the tail of a chunk.
@@ -386,6 +389,52 @@ def build_segment_plan(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                     block_rows=R, chunk_edges=T, window=win)
 
 
+def build_sliced_segment_plans(src: np.ndarray, dst: np.ndarray,
+                               w: np.ndarray, num_dst: int,
+                               block_rows: int = DEFAULT_BLOCK_ROWS,
+                               chunk_edges: int = DEFAULT_CHUNK_EDGES,
+                               num_src: int | None = None,
+                               window: int | str = "auto",
+                               slices: int | str = "auto",
+                               device="cpu") -> tuple:
+    """One operator direction cut into S destination slices on block-aligned
+    dst cuts, each planned on its own (``JAX: ops/spmm_pallas.py:342-403``).
+    ``slices="auto"`` is ``min(4, blocks)``.  The window is decided once on
+    the whole direction and forced on every slice, so each slice's chunks
+    are the unsliced plan's: the slices' block spaces, one after another,
+    are the unsliced block space, row for row and in the same summation
+    order.  Returns a tuple of :class:`SegmentPlan` (one when slicing is
+    moot)."""
+    R = int(block_rows)
+    E = int(src.shape[0])
+    blocks = max(-(-num_dst // R), 1)
+    S = min(4, blocks) if slices == "auto" else int(slices)
+    S = max(min(S, blocks), 1)
+    if S == 1 or E == 0:
+        return (build_segment_plan(
+            src, dst, w, num_dst, block_rows=R, chunk_edges=chunk_edges,
+            num_src=num_src, window=window, device=device),)
+    dst = np.asarray(dst, np.int64)
+    if not np.all(np.diff(dst) >= 0):
+        raise ValueError("edges must be sorted by dst")
+    if window == "auto":
+        forced_window = auto_window(dst, num_dst, E, R, chunk_edges)
+    else:
+        forced_window = int(window)             # 0 = full-block chunks
+    plans = []
+    for s in range(S):
+        lo = (blocks * s // S) * R
+        hi = num_dst if s == S - 1 else min((blocks * (s + 1) // S) * R,
+                                            num_dst)
+        e_lo = np.searchsorted(dst, lo, side="left")
+        e_hi = np.searchsorted(dst, hi, side="left")
+        plans.append(build_segment_plan(
+            src[e_lo:e_hi], dst[e_lo:e_hi] - lo, w[e_lo:e_hi], hi - lo,
+            block_rows=R, chunk_edges=chunk_edges, num_src=num_src,
+            window=forced_window, device=device))
+    return tuple(plans)
+
+
 def segment_plan_from_jax(plan, device="cpu") -> SegmentPlan:
     """The port's plan from a JAX ``PallasSegmentPlan`` (or any object with
     its field names whose arrays convert with ``np.asarray``), so both run
@@ -424,3 +473,16 @@ class PadLayout:
 
     def from_padded(self, p: torch.Tensor) -> torch.Tensor:
         return p[:self.rows]
+
+    def rows_of(self, p: torch.Tensor, rows: torch.Tensor, plan=None,
+                backend: str = "auto") -> torch.Tensor:
+        """The rows ``rows`` of the padded table ``p`` (a row's slot is the
+        row itself: the padding is at the tail).  ``plan`` (of ``rows``
+        into the padded rows, ``ops/gather.py``) gives the gather its
+        segment-sum backward; without it the gather is the stock
+        ``p[rows]``."""
+        from .gather import gather_rows
+        if p.shape[0] != self.padded_rows:
+            raise ValueError(f"padded table has {p.shape[0]} rows, layout "
+                             f"holds {self.padded_rows}")
+        return gather_rows(p, rows, plan, backend)

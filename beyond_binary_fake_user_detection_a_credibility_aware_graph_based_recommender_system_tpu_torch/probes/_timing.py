@@ -93,17 +93,19 @@ def csr_bound_ms(d, D: int, itemsize: int = 4) -> float:
     return bound_ms(nbytes, 2.0 * E * D)
 
 
-def plan_bound_ms(plan, D: int, lid_bytes: int = 4) -> float:
-    """One chunked application: the referenced source rows, the plan's
-    arrays (source id and weight per real edge, local id per padded edge:
-    a pad edge is known by its local id and skipped; block id, first flag
-    and window start per chunk) and one write of the block space."""
+def plan_bound_ms(plan, D: int, lid_bytes: int = 4,
+                  x_bytes: int = 4) -> float:
+    """One chunked application: the referenced source rows (of ``x_bytes``
+    a value: 2 for a bf16 table), the plan's arrays (source id and weight
+    per real edge, local id per padded edge: a pad edge is known by its
+    local id and skipped; block id, first flag and window start per chunk)
+    and one write of the fp32 block space."""
     R, W = plan.block_rows, plan.window
     real = plan.local_ids < (W or R)
     src = plan.src_padded[real]
     rows = int(torch.unique(src).numel()) if src.numel() else 0
     G = plan.num_chunks
     E = int(real.sum())
-    nbytes = (rows * D * 4 + E * 8 + plan.padded_edges * lid_bytes
+    nbytes = (rows * D * x_bytes + E * 8 + plan.padded_edges * lid_bytes
               + G * 4 * (3 if W else 2) + plan.num_blocks * R * D * 4)
     return bound_ms(nbytes, 2.0 * E * D)

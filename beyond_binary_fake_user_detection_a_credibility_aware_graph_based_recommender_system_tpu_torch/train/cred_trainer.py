@@ -62,7 +62,7 @@ from ..models.cred_model import CredModel, Params, init_cred_params
 from ..models.cred_slas import build_slas_graph_data, slas_forward
 from ..ops.adam import AdamState, adam_init, adam_step
 from ..ops.gather import GatherPlan, gather_plans, gather_rows
-from ..utils.config import CredConfig
+from ..utils.config import CredConfig, kernel_backend
 from ..utils.device import resolve_device
 from .checkpoint import TrainCheckpointer, save_params_npz
 from .trainer import deterministic_algorithms
@@ -102,15 +102,17 @@ class CredTrainer:
                  mesh=None):
         """``backend``: "auto" launches the SpMM and Adam kernels for CUDA
         tensors (plain versions on the CPU); "torch" runs the plain
-        versions on any device.  ``mesh``: a (data, model) ``DeviceMesh``
-        on ``device``, whose edge-sharded operators the model then runs
-        on."""
-        if backend not in ("auto", "torch"):
-            raise ValueError(f"unknown backend {backend!r}")
+        versions on any device; "chunked" runs the full-graph views' SpMM on
+        chunk plans (``ops/spmm.py``, the JAX package's "pallas"), the rest
+        as "auto".  ``mesh``: a (data, model) ``DeviceMesh`` on ``device``,
+        whose edge-sharded operators the model then runs on (their local
+        sums through the CSR kernel under "chunked" too, as the JAX
+        package's sharded operator ignores the backend)."""
         self.cfg = cfg or CredConfig()
         self.hg = hg
         self.device = resolve_device(device)
-        self.backend = backend
+        # the gathers' backward and Adam
+        self.backend = kernel_backend(backend)
         self.verbose = verbose
         self.mesh = mesh
         factory = None
@@ -119,7 +121,7 @@ class CredTrainer:
             import torch.distributed as dist
             from ..parallel.sharded_spmm import ShardedSpmmOperator
             factory = functools.partial(ShardedSpmmOperator, mesh=mesh,
-                                        backend=backend)
+                                        backend=self.backend)
             self.verbose = verbose and (not dist.is_initialized()
                                         or dist.get_rank() == 0)
         # slas mode never touches the full-graph temporal-view operators

@@ -53,7 +53,7 @@ from ..ops.adam import AdamState, adam_init, adam_step
 from ..ops.gather import GatherPlan, gather_plans, gather_rows
 from ..ops.sampling import (PopMixSampler, sample_negatives_popmix,
                             sample_negatives_uniform, sample_positives)
-from ..utils.config import RecConfig
+from ..utils.config import RecConfig, kernel_backend
 from ..utils.device import resolve_device
 from .checkpoint import TrainCheckpointer, save_params_npz
 
@@ -155,6 +155,8 @@ class RecTrainer:
         self.device = resolve_device(device)
         self.verbose = verbose
         self.mesh = mesh
+        # the backend of the gathers' backward, Adam and the mesh's sums
+        self._kernels = kernel_backend(cfg.spmm_backend)
         self._rank0 = True
         if mesh is not None:
             import functools
@@ -171,7 +173,7 @@ class RecTrainer:
             if operator_factory is None:
                 operator_factory = functools.partial(
                     ShardedSpmmOperator, mesh=mesh,
-                    mode=cfg.sharded_spmm_mode, backend=cfg.spmm_backend,
+                    mode=cfg.sharded_spmm_mode, backend=self._kernels,
                     precision=cfg.spmm_precision)
 
         if cred is None and cfg.cred_csv_path:
@@ -208,7 +210,7 @@ class RecTrainer:
             self._rows = table_rows(self.model)
             self._sharded_step = make_sharded_train_step(
                 self.model, mesh, cfg.lr, loss_fn=self._loss_fn,
-                backend=cfg.spmm_backend)[0]
+                backend=self._kernels)[0]
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None
@@ -283,10 +285,13 @@ class RecTrainer:
     def step_plans(self, users: torch.Tensor, pos: torch.Tensor,
                    neg: torch.Tensor) -> List[StepPlans]:
         """The gather plans of every step of ``(nb, B)`` batches, built at
-        once on their device (``ops/gather.gather_plans``)."""
+        once on their device (``ops/gather.gather_plans``), into the tables
+        the batch rows are gathered from (``LightGCN.gather_table_rows``:
+        the padded tables of a chunked chain)."""
+        n_users, n_items = self.model.gather_table_rows()
         return list(zip(
-            gather_plans(users, self.graph.num_users),
-            gather_plans(torch.cat([pos, neg], dim=1), self.graph.num_items)))
+            gather_plans(users, n_users),
+            gather_plans(torch.cat([pos, neg], dim=1), n_items)))
 
     def _loss_fn(self, params: Params, users, pos, neg, mask,
                  cached_rest: Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -300,7 +305,7 @@ class RecTrainer:
         B = users.shape[0]
         items = torch.cat([pos, neg])
         p_u, p_i = plans or (None, None)
-        bk = self.cfg.spmm_backend
+        bk = self._kernels
         if cached_rest is None and self.mesh is None:
             # batch-row combine: gather each layer's batch rows and average
             # B-row vectors instead of the full tables (bit-identical scores)
@@ -376,7 +381,7 @@ class RecTrainer:
                                  plans, count)
             grads = torch.autograd.grad(loss, list(leaves.values()))
             adam_step(params, dict(zip(leaves, grads)), opt_state,
-                      self.cfg.lr, backend=self.cfg.spmm_backend)
+                      self.cfg.lr, backend=self._kernels)
         return loss.detach()
 
     def run_epoch(self, params: Params, opt_state: AdamState,

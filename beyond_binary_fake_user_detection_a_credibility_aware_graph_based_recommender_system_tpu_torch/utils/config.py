@@ -105,6 +105,19 @@ WEIGHT_MODES = ("symmetric", "cred_eq322", "cu_message", "degree_aware")
 
 NEGATIVE_SAMPLERS = ("uniform", "popmix")
 
+#: SpMM backends: "auto" (CSR kernel), "torch" (plain versions), "chunked"
+#: (chunk plans; the JAX package's "pallas")
+SPMM_BACKENDS = ("auto", "torch", "chunked")
+
+
+def kernel_backend(spmm_backend: str) -> str:
+    """The backend of every kernel but the SpMM (the row gathers' backward,
+    Adam, the mesh's local sums) under ``spmm_backend``: "chunked" only
+    changes the SpMM's layout, so those run as under "auto"."""
+    if spmm_backend not in SPMM_BACKENDS:
+        raise ValueError(f"unknown spmm backend {spmm_backend!r}")
+    return "auto" if spmm_backend == "chunked" else spmm_backend
+
 
 @dataclass
 class RecConfig(ConfigBase):
@@ -170,12 +183,16 @@ class RecConfig(ConfigBase):
     propagation_schedule: str = "per_batch"
 
     # Kernel backend: "auto" launches the hand-written CUDA kernels (the
-    # SpMM and, in training, the fused Adam update) for CUDA tensors and
+    # CSR SpMM and, in training, the fused Adam update) for CUDA tensors and
     # runs their plain PyTorch versions for CPU tensors; "torch" forces the
-    # plain versions (the reference run that the kernels are held against).  "bf16" precision quantizes the SpMM messages and weights
-    # to bfloat16 with fp32 per-destination accumulation, as the JAX
-    # package's Pallas kernel does; fp32 is the reference-parity default.
-    spmm_backend: str = "auto"        # "auto" | "torch"
+    # plain versions (the reference run that the kernels are held against);
+    # "chunked" runs the SpMM on dst-sliced chunk plans in the padded chain
+    # (the staged chunk kernel; the JAX package's "pallas"), every other
+    # kernel as "auto" does (kernel_backend).  "bf16" precision quantizes
+    # the SpMM messages and weights to bfloat16 with fp32 per-destination
+    # accumulation, as the JAX package's Pallas kernel does; fp32 is the
+    # reference-parity default.
+    spmm_backend: str = "auto"        # "auto" | "torch" | "chunked"
     spmm_precision: str = "fp32"      # "fp32" (parity) | "bf16" (fast mode)
     # mesh-sharded propagation: "halo" = all-to-all of needed rows,
     # "allgather" = replicate the source table (parallel/sharded_spmm.py)
@@ -199,7 +216,7 @@ class RecConfig(ConfigBase):
         assert self.table_layout in ("joint", "split"), self.table_layout
         assert self.propagation_schedule in ("per_batch", "per_epoch")
         assert self.membership in ("hash", "bsearch"), self.membership
-        assert self.spmm_backend in ("auto", "torch"), self.spmm_backend
+        assert self.spmm_backend in SPMM_BACKENDS, self.spmm_backend
         assert self.spmm_precision in ("fp32", "bf16"), self.spmm_precision
         if self.propagation == "symmetric":
             assert self.weight_mode == "symmetric", (

@@ -72,7 +72,9 @@ Phases (each prints one line; any failure exits non-zero):
      and 128, and D=63, D=256 and a misaligned table on three graphs, and
      the reference graph in both directions; two launches bit-identical and
      bit-equal to the plain version's sequential CPU sum, pad and empty
-     rows exact zeros, a K=3 padded chain; then the slab row gather
+     rows exact zeros, bf16 tables on the int32 layouts of three graphs
+     (D 64, 63, 256, a misaligned table), a K=3 padded chain; then the slab
+     row gather
      (``csrc/row_gather.cu``) at S in {512, 768, 2048, 8192, 16384},
      bit-exact, the L2 route at every S and the shared-memory route in
      clusters of 1, 2, 4 and 8 CTAs at S <= 768, on an aligned slab
@@ -147,9 +149,29 @@ Phases (each prints one line; any failure exits non-zero):
      3 steps on the (1, 2) mesh and then on the (2, 1) mesh in the same
      process: losses identical on both ranks, parameters and losses within
      phase 7's tolerances of its one-card kernel path.
+ 17. the chunked backend (``spmm_backend=chunked``: dst-sliced chunk plans
+     in the padded chain through ``chunk_spmm_block`` / ``chunk_spmm_window``,
+     the JAX package's Pallas path): (a) with phase 3's graph, CSV and
+     parameters, the CLI's evaluate in sampled and full mode, a propagate
+     and topk_for_users, counted (S launches an apply, segment_spmm 0):
+     tables within the fp32 bound of the CSR kernel's, metrics within 1e-6
+     of phase 3's, top-20 Jaccard >= 0.99; every plan of the path, fp32 and
+     bf16, bit-equal to the plain version's ordered CPU sums; (b) bf16
+     within BF16_ROW_TOL of the plain chunked version on the card; (c)
+     sliced and unsliced (slices=1) propagates and two runs bit-equal; (d)
+     the CLI's train-rec spmm_backend=chunked for 2 epochs with
+     checkpoints, counted, evaluate reproducing test_metrics.json, then 3
+     steps from phase 7's parameters and batches against phase 7's CSR
+     kernel path (its tolerances), two runs bit-identical, no
+     indexing_backward_kernel in a profiled step; (e) 3 Stage-A full-graph
+     steps on chunk plans against phase 12's kernel path, counted; (f) times
+     in turns with the CSR path: each direction's apply at S = auto and
+     S = 1, fp32 and bf16 (bound, torch.sparse.mm), the propagate and the
+     train step (CUDA events, profiler device ms, host us).
 
 Every kernel's launch counter is set to 0 before each counted path (phases
-3, 6, 10, 11, 12, 15 and 16 (b), (c)) and read after it; a kernel that is
+3, 6, 10, 11, 12, 15, 16 (b), (c) and 17 (a), (d), (e)) and read after it;
+a kernel that is
 not on that path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
@@ -204,6 +226,9 @@ BF16_ROW_TOL = 2e-2           # |kernel - plain| <= 2e-2 * max|plain row|
 # training, kernel path vs plain path: the SpMM sums in another order (the
 # plain path's index_add_), Adam divides by sqrt(v) + eps
 TRAIN_RTOL, TRAIN_ATOL, LOSS_ATOL = 1e-5, 1e-6, 1e-6
+# Stage A's losses (O(1e4)) on another SpMM's summation order: at most four
+# fp32 ulps (an ulp is 2**-24 to 2**-23 of the value)
+STAGE_A_LOSS_RTOL = 2.0 ** -22
 
 
 def log(msg: str) -> None:
@@ -277,15 +302,18 @@ def _launched(before: dict, want: dict, tag: str) -> dict:
     return got
 
 
-def _held(params: dict, losses, ref: dict, tag: str) -> tuple:
+def _held(params: dict, losses, ref: dict, tag: str,
+          loss_rtol: float = 0.0) -> tuple:
     """Train steps' ``params`` and ``losses`` against ``ref``'s at phase 7's
-    tolerances (parameters TRAIN_RTOL / TRAIN_ATOL, losses LOSS_ATOL):
-    (loss diff, parameter diff, bit-equal)."""
+    tolerances (parameters TRAIN_RTOL / TRAIN_ATOL, losses LOSS_ATOL +
+    ``loss_rtol`` * |ref|): (loss diff, parameter diff, bit-equal)."""
     import torch
-    loss_err = float((losses - ref["losses"]).abs().max())
-    if loss_err > LOSS_ATOL or not torch.isfinite(losses).all():
+    loss_diff = (losses - ref["losses"]).abs()
+    loss_err = float(loss_diff.max())
+    if bool((loss_diff > LOSS_ATOL + loss_rtol * ref["losses"].abs()).any()) \
+            or not torch.isfinite(losses).all():
         raise AssertionError(f"{tag}: losses differ by {loss_err} > "
-                             f"{LOSS_ATOL}")
+                             f"{LOSS_ATOL} + {loss_rtol:g}*|ref|")
     p_err = 0.0
     for k, want in ref["params"].items():
         diff = (params[k].to(want.device) - want).abs()
@@ -1420,11 +1448,11 @@ GATHER_STEPS = 64
 
 
 def _chunk_check(cs, plan, x, lid, tag, worst) -> None:
-    """Kernel against the plain version on the card (fp32 bound), two
-    launches bit-identical, pad and empty rows zero, and bit-equal to the
-    plain version's sequential CPU sum (runs in edge order, then chunk
-    partials in chunk order: the order the kernel follows, with no
-    atomics)."""
+    """Kernel against the plain version on the card (fp32 bound: a bf16
+    table's products are exact in fp32 and summed in fp32), two launches
+    bit-identical, pad and empty rows zero, and bit-equal to the plain
+    version's sequential CPU sum (runs in edge order, then chunk partials in
+    chunk order: the order the kernel follows, with no atomics)."""
     import dataclasses
     import torch
     y1 = cs.chunk_spmm_blocks(plan, x, lid)
@@ -1448,7 +1476,9 @@ def _chunk_check(cs, plan, x, lid, tag, worst) -> None:
         raise AssertionError(f"{tag}: a row no edge reaches is not zero")
     name = CHUNK_KERNEL["window" if plan.window else
                         ("int16" if lid == torch.int16 else "int32")]
-    worst[name] = max(worst[name], float(diff.max()) if diff.numel() else 0.0)
+    name += " bf16" if x.dtype == torch.bfloat16 else ""
+    worst[name] = max(worst.get(name, 0.0),
+                      float(diff.max()) if diff.numel() else 0.0)
     cpu = dataclasses.replace(plan, _cache={}, **{
         f: (None if getattr(plan, f) is None else getattr(plan, f).cpu())
         for f in ("src_padded", "w_padded", "local_ids", "block_id",
@@ -1482,7 +1512,7 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
                                    rng.integers(0, 2_000, E)),
                           rng.normal(size=E), 5_000, 2_000)
     hub_chunks = 0
-    wide = 0
+    wide = bf16_cases = 0
     for name, (src, dst, w, ns, nd) in cases.items():
         o = np.argsort(dst, kind="stable")
         src, dst, w = (np.asarray(src, np.int32)[o], np.asarray(dst, np.int64)[o],
@@ -1496,22 +1526,29 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
                 if hub_chunks <= CHUNK_HUB_CHUNKS:
                     raise AssertionError(f"hub block spans {hub_chunks} "
                                          f"chunks, not > {CHUNK_HUB_CHUNKS}")
-            widths = [(D, True) for D in (8, 64, 128)]
+            f32, b16 = torch.float32, torch.bfloat16
+            widths = [(D, True, f32) for D in (8, 64, 128)]
             if name in CHUNK_WIDE_GRAPHS and label in CHUNK_WIDE_LAYOUTS:
-                widths += [(63, True), (256, True), (64, False)]
-            for D, aligned in widths:
+                widths += [(63, True, f32), (256, True, f32), (64, False, f32)]
+                if lid == "int32":    # bf16 tables: P1 and P3
+                    widths += [(64, True, b16), (63, True, b16),
+                               (256, True, b16), (64, False, b16)]
+            for D, aligned, dt in widths:
                 if aligned:
-                    x = torch.randn(ns, D, device=dev)
-                else:   # one float off 16-byte alignment
-                    x = torch.randn(ns * D + 1, device=dev)[1:].view(ns, D)
+                    x = torch.randn(ns, D, device=dev).to(dt)
+                else:   # one value off the 4-value alignment
+                    x = torch.randn(ns * D + 1, device=dev).to(dt)[1:]
+                    x = x.view(ns, D)
                 if name == "inf_row0":
                     x[0] = float("inf")
                 _chunk_check(cs, plan, x, getattr(torch, lid),
-                             f"{name} {label} D={D}"
+                             f"{name} {label} D={D} {dt}"
                              + ("" if aligned else " misaligned"), worst)
                 n += 1
-                wide += (D, aligned) not in ((8, True), (64, True),
-                                             (128, True))
+                wide += (D, aligned, dt) not in ((8, True, f32),
+                                                 (64, True, f32),
+                                                 (128, True, f32))
+                bf16_cases += dt == b16
     # the reference graph, both directions, and a K=3 padded chain
     for name, d in dirs.items():
         for label, R, T, W, lid in CHUNK_LAYOUTS[:5]:
@@ -1554,7 +1591,8 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
         f"({len(cases)} graphs x {len(CHUNK_LAYOUTS)} layouts "
         f"(T 30/32/36/256/1024, int32 and int16 ids) "
         f"x D 8/64/128; {wide} cases at D 63/256 and a misaligned D=64 table "
-        f"on {'/'.join(CHUNK_WIDE_GRAPHS)} x "
+        f"and {bf16_cases} with bf16 tables (D 64/63/256 and a misaligned "
+        f"D=64, int32 layouts) on {'/'.join(CHUNK_WIDE_GRAPHS)} x "
         f"{'/'.join(CHUNK_WIDE_LAYOUTS)}; a hub block of {hub_chunks} "
         f"chunks; the reference graph x 5 "
         f"layouts x 2 directions), bit-identical reruns, inf in source row 0 "
@@ -1596,6 +1634,7 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
         f"(multicast bulk copies) and a misaligned one (the threads' load); "
         f"bit-exact, bit-identical reruns")
     return {"max_abs_err": worst, "cases": n, "wide_cases": wide,
+            "bf16_cases": bf16_cases,
             "hub_block_chunks": hub_chunks, "padded_chain_max_diff": chain_err,
             "gather": gather}
 
@@ -2814,18 +2853,562 @@ def phase_train_two_ranks(tmp: Path, ctx: dict, parity: dict) -> dict:
     return {"seconds": seconds, **res}
 
 
+# --------------------------------------------------------------------------
+# phase 17: the chunked backend on the main path
+# --------------------------------------------------------------------------
+
+CHUNKED_ITERS = 10            # CUDA-event loop of a propagate or a step
+CHUNK_NAMES = ("chunk_spmm_block", "chunk_spmm_window")
+
+
+def _chunk_launches(*directions) -> dict:
+    """Launches by kernel of one application of each chunked direction
+    (``ops/spmm.ChunkDirection``): one a slice, by its plan's kind."""
+    out = {}
+    for d in directions:
+        for p in d.plans:
+            name = CHUNK_NAMES[bool(p.window)]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _times(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def _plus(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _chunked_op(dev, slices="auto", precision="fp32"):
+    """An operator factory of chunked ``SpmmOperator``s."""
+    from importlib import import_module
+    spmm = import_module(f"{PKG}.ops.spmm")
+    return lambda em: spmm.SpmmOperator(em, dev, backend="chunked",
+                                        precision=precision, slices=slices)
+
+
+class _plain_chunks:
+    """Within: chunked operators run the plain version of the chunk kernel
+    (``chunk_spmm_blocks(backend="torch")``) on the card, to hold the
+    kernel path against."""
+
+    def __enter__(self):
+        import functools
+        from importlib import import_module
+        self.mod = import_module(f"{PKG}.ops.spmm")
+        self.real = self.mod.chunk_spmm_blocks
+        self.mod.chunk_spmm_blocks = functools.partial(self.real,
+                                                       backend="torch")
+
+    def __exit__(self, *exc):
+        self.mod.chunk_spmm_blocks = self.real
+
+
+def _plan_stats(op) -> dict:
+    return {side: [{"rows": p.num_dst, "blocks": p.num_blocks,
+                    "chunks": p.num_chunks, "window": p.window,
+                    "pad_pct": 100.0 * (p.padded_edges - int(
+                        (p.local_ids < (p.window or p.block_rows)).sum()))
+                    / max(p.padded_edges, 1)}
+                   for p in getattr(op, side).plans]
+            for side in ("fwd", "bwd")}
+
+
+def phase_chunked_serving(dev, tmp: Path, ctx: dict, res: dict) -> dict:
+    """Phase 17 (a)-(c): serving on the chunked backend, counted; bf16
+    against the plain chunked version; sliced against unsliced."""
+    import torch
+    from importlib import import_module
+    cli = import_module(f"{PKG}.cli.main")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    retrieval = import_module(f"{PKG}.eval.retrieval")
+    lightgcn = import_module(f"{PKG}.models.lightgcn")
+    cs = import_module(f"{PKG}.ops.chunk_spmm")
+    graph, cfg = ctx["graph"], ctx["cfg"]
+    K = cfg.num_layers
+    cfg_c = cfg.replace(spmm_backend="chunked")
+    params = _params(ctx, dev)
+    tr_csr = trainer_mod.RecTrainer(cfg, graph, device=dev, verbose=False)
+    users = torch.as_tensor(tr_csr.ctx.eval_users["test"][:512], device=dev)
+    excl = torch.as_tensor(
+        retrieval.exclusion_rows_for_users(graph, users.cpu().numpy()),
+        device=dev)
+    with torch.no_grad():
+        u_csr, i_csr = tr_csr.model.propagate(params)
+    _, top_csr = retrieval.topk_for_users(u_csr, i_csr, users, 20,
+                                          exclude_batch_rows=excl)
+
+    # ---- (a) the serving path on chunk plans, counted ----
+    reset_counts()
+    t0 = time.perf_counter()
+    res_s = cli.run(_evaluate_args(tmp, dev, "sampled")
+                    + ["spmm_backend=chunked"])
+    res_f = cli.run(_evaluate_args(tmp, dev, "full")
+                    + ["spmm_backend=chunked"])
+    tr = trainer_mod.RecTrainer(cfg_c, graph, device=dev, verbose=False)
+    with torch.no_grad():
+        u_c, i_c = tr.model.propagate(params)
+    top_s, top_c = retrieval.topk_for_users(u_c, i_c, users, 20,
+                                            exclude_batch_rows=excl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = tr.model
+    ifu, ufi = m.item_from_user, m.user_from_item
+    if m._padded_chain() is None:
+        raise AssertionError("the chunked operators' padded chain is off")
+    per_prop = _times(_chunk_launches(ifu.fwd, ufi.fwd), K)
+    counts = read_counts(_times(per_prop, 3), "serving_chunked path")
+    if not (_close(u_c, u_csr) and _close(i_c, i_csr)):
+        raise AssertionError("chunked tables differ from the CSR kernel's")
+    tab_err = max(float((u_c - u_csr).abs().max()),
+                  float((i_c - i_csr).abs().max()))
+    err_s = _metrics_equal(res_s, res["metrics_sampled"])
+    err_f = _metrics_equal(res_f, res["metrics_full"])
+    jac = _jaccard(top_c.cpu().numpy(), top_csr.cpu().numpy())
+    if jac.mean() < 0.99 or not torch.isfinite(top_s).all():
+        raise AssertionError(f"chunked top-20 Jaccard {jac.mean()} < 0.99")
+
+    # the path's plans at reference scale, each held against the plain
+    # version (fp32 bound) and bit for bit against its ordered CPU sums, in
+    # fp32 and bf16, with two launches bit-identical
+    worst = {}
+    x_of = {"fwd": {id(ifu): params["user_emb"], id(ufi): params["item_emb"]},
+            "bwd": {id(ifu): i_c, id(ufi): u_c}}
+    n_checked = 0
+    for op in (ifu, ufi):
+        for side in ("fwd", "bwd"):
+            x32 = x_of[side][id(op)].contiguous()
+            for p in getattr(op, side).plans:
+                for x in (x32, x32.to(torch.bfloat16)):
+                    _chunk_check(cs, p, x, torch.int32, f"{side} {p.num_dst} "
+                                 f"rows W={p.window} {x.dtype}", worst)
+                    n_checked += 1
+
+    # ---- (b) bf16: the kernel path against the plain chunked version ----
+    tr_b = trainer_mod.RecTrainer(cfg_c.replace(spmm_precision="bf16"),
+                                  graph, device=dev, verbose=False)
+    with torch.no_grad():
+        u_b, i_b = tr_b.model.propagate(params)
+        with _plain_chunks():
+            u_bp, i_bp = tr_b.model.propagate(params)
+    bf16_rel = 0.0
+    for got, want in ((u_b, u_bp), (i_b, i_bp)):
+        row = want.abs().amax(dim=1, keepdim=True)
+        diff = (got - want).abs()
+        if bool((diff > BF16_ROW_TOL * row + FP32_ATOL).any()):
+            raise AssertionError(f"bf16 chunked tables differ from the plain "
+                                 f"chunked version by {float(diff.max())}")
+        bf16_rel = max(bf16_rel, float((diff / (row + 1e-30)).max()))
+
+    # ---- (c) sliced and unsliced, and two runs: bit-equal ----
+    m1 = lightgcn.LightGCN(cfg_c, graph, tr.cred, device=dev,
+                           operator_factory=_chunked_op(dev, slices=1))
+    with torch.no_grad():
+        u_1, i_1 = m1.propagate(params)
+        u_2, i_2 = m.propagate(params)
+    if len(m1.item_from_user.fwd.plans) != 1:
+        raise AssertionError("slices=1 built more than one slice")
+    if not (torch.equal(u_1, u_c) and torch.equal(i_1, i_c)):
+        raise AssertionError("sliced and unsliced propagates differ")
+    if not (torch.equal(u_2, u_c) and torch.equal(i_2, i_c)):
+        raise AssertionError("two chunked propagates differ")
+    stats = {"item<-user": _plan_stats(ifu), "user<-item": _plan_stats(ufi)}
+    log(f"[phase 17a] serving on chunk plans (spmm_backend=chunked, "
+        f"cu_message D={cfg.emb_dim} K={K}): item<-user "
+        + ", ".join(f"{s['rows']} rows W={s['window']} {s['chunks']} chunks "
+                    f"pad {s['pad_pct']:.1f}%" for s in stats["item<-user"]
+                    ["fwd"])
+        + "; user<-item " + ", ".join(
+            f"{s['rows']} rows W={s['window']} {s['chunks']} chunks pad "
+            f"{s['pad_pct']:.1f}%" for s in stats["user<-item"]["fwd"])
+        + f"; launches {counts} = 3 propagates x {per_prop}; tables vs the "
+        f"CSR kernel's max abs diff {tab_err:.3g} (tol {FP32_ATOL:g} + "
+        f"{FP32_RTOL:g}*|ref|), sampled metrics diff {err_s:.3g}, full "
+        f"{err_f:.3g} (tol 1e-6), top-20 Jaccard mean {jac.mean():.6f}; "
+        f"{n_checked} plans of the path (fp32 and bf16) bit-equal to the "
+        f"plain version's CPU sums, max abs err vs the card's plain version "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; path {wall:.1f}s")
+    log(f"[phase 17b-c] bf16 chunked propagate vs the plain chunked version "
+        f"on the card: max row-relative diff {bf16_rel:.3g} (tol "
+        f"{BF16_ROW_TOL:g}); slices=1 and slices=auto propagates bit-equal, "
+        f"two runs bit-equal")
+    return {"launches_by_kernel": counts, "launches_per_propagate": per_prop,
+            "table_max_diff": tab_err, "metrics_diff": [err_s, err_f],
+            "jaccard_mean": float(jac.mean()), "plans": stats,
+            "max_abs_err": worst, "plans_checked": n_checked,
+            "bf16_row_rel_diff": bf16_rel, "path_s": wall,
+            "_models": {"chunked": tr, "bf16": tr_b, "s1": m1,
+                        "csr": tr_csr}}
+
+
+def phase_chunked_training(dev, tmp: Path, ctx: dict, train: dict,
+                           p7: dict, serving: dict) -> dict:
+    """Phase 17 (d): train-rec on the chunked backend, counted; 3 steps
+    against phase 7's CSR kernel path; reruns; a profiled step."""
+    import torch
+    from importlib import import_module
+    cli = import_module(f"{PKG}.cli.main")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    adam = import_module(f"{PKG}.ops.adam")
+    graph, cfg = ctx["graph"], ctx["cfg"]
+    K = cfg.num_layers
+    m = serving["_models"]["chunked"].model
+    ifu, ufi = m.item_from_user, m.user_from_item
+    per_eval = _times(_chunk_launches(ifu.fwd, ufi.fwd), K)
+    per_step = _times(_chunk_launches(ifu.fwd, ufi.fwd, ifu.bwd, ufi.bwd), K)
+    nb = train["steps_per_epoch"]
+    n_evals = TRAIN_EPOCHS // cfg.eval_every + 1
+    out = tmp / "rec_chunked"
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli.run(["train-rec", "--graph", str(tmp / "graph.npz"),
+                   "--preset", "cu_message", "--cred", str(tmp / "cred.csv"),
+                   "--out", str(out), "--checkpoint", "--device", str(dev),
+                   f"epochs={TRAIN_EPOCHS}", "spmm_backend=chunked"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(
+        {**_plus(_times(per_step, nb * TRAIN_EPOCHS),
+                 _times(per_eval, n_evals)),
+         "gather_backward": (2 * K + 4) * nb * TRAIN_EPOCHS,
+         "fused_adam": nb * TRAIN_EPOCHS}, "training_chunked path")
+    losses = [h.loss for h in res.history]
+    if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)):
+        raise AssertionError(f"chunked epoch losses {losses}")
+    if not any((out / "ckpt").glob("*.pt")):
+        raise AssertionError("chunked train-rec wrote no checkpoint")
+    written = json.loads((out / "test_metrics.json").read_text())
+    ev = cli.run(["evaluate", "--graph", str(tmp / "graph.npz"),
+                  "--params", str(out / "best_model.npz"),
+                  "--preset", "cu_message", "--cred", str(tmp / "cred.csv"),
+                  "--split", "test", "--device", str(dev),
+                  "spmm_backend=chunked"])
+    ev_err = _metrics_equal({int(k): v for k, v in written.items()}, ev)
+
+    # ---- 3 steps from phase 7's parameters and batches ----
+    ref = p7["_ref"]
+    tr = trainer_mod.RecTrainer(ctx["cfg"].replace(spmm_backend="chunked"),
+                                graph, device=dev, verbose=False)
+    batches = [b[:5] + (tr.step_plans(b[0][None], b[1][None],
+                                      b[2][None])[0],)
+               for b in ref["batches"]]
+    if batches[0][5][1].num_dst != ufi.src_layout.padded_rows:
+        raise AssertionError("the chunked step's item plan is not over the "
+                             "padded item table")
+
+    def run():
+        params = _params(ctx, dev)
+        opt = adam.adam_init(params)
+        losses = torch.stack([tr.train_step(params, opt, *b)
+                              for b in batches])
+        torch.cuda.synchronize()
+        return params, losses
+
+    S = len(batches)
+    before = _counts_now()
+    pc, lc = run()
+    _launched(before, {**_times(per_step, S),
+                       "gather_backward": (2 * K + 4) * S,
+                       "fused_adam": S}, "chunked train steps")
+    loss_err, p_err, bit_csr = _held(pc, lc, ref, "chunked train steps "
+                                     "against phase 7's CSR kernel path")
+    pc2, lc2 = run()
+    bit = torch.equal(lc, lc2) and all(torch.equal(pc[k], pc2[k]) for k in pc)
+    if not bit:
+        raise AssertionError("two chunked train-step runs differ")
+    p1 = _params(ctx, dev)
+    o1 = adam.adam_init(p1)
+    _no_scatter(lambda: tr.train_step(p1, o1, *batches[0]),
+                "a chunked train step")
+    log(f"[phase 17d] train-rec spmm_backend=chunked, {TRAIN_EPOCHS} epochs "
+        f"with checkpoints in {wall:.1f}s (phase 6, CSR: "
+        f"{train['train_rec_wall_s']:.1f}s): epoch losses "
+        f"{[round(x, 6) for x in losses]} (CSR {[round(x, 6) for x in train['epoch_losses']]}); "
+        f"launches {counts} = {per_step} x {nb} x {TRAIN_EPOCHS} + "
+        f"{per_eval} x {n_evals}, gather_backward {2 * K + 4} and fused_adam "
+        f"1 a step; evaluate reproduces test_metrics.json (diff "
+        f"{ev_err:.3g}); {S} steps vs phase 7's CSR kernel path: losses "
+        f"max diff {loss_err:.3g} (tol {LOSS_ATOL:g}), params "
+        f"{p_err:.3g} (tol {TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|ref|), bit-equal "
+        f"{bit_csr}; two chunked runs bit-identical; no index_put/index_add/"
+        f"indexing_backward in a profiled step")
+    return {"launches_by_kernel": counts, "launches_per_step": per_step,
+            "train_rec_wall_s": wall, "epoch_losses": losses,
+            "epoch_seconds": [h.seconds for h in res.history],
+            "evaluate_diff": ev_err, "loss_max_diff": loss_err,
+            "param_max_diff": p_err, "bit_equal_to_csr": bit_csr,
+            "_trainer": tr, "_batches": batches}
+
+
+def phase_chunked_cred(dev, hg, c12: dict) -> dict:
+    """Phase 17 (e): 3 Stage-A full-graph steps on chunk plans, counted,
+    against phase 12's CSR kernel path."""
+    import torch
+    from importlib import import_module
+    ct = import_module(f"{PKG}.train.cred_trainer")
+    adam = import_module(f"{PKG}.ops.adam")
+    ref = c12["_ref"]
+    cfg = c12["_trainer"].cfg
+    reset_counts()
+    tr = ct.CredTrainer(hg, cfg, device=dev, backend="chunked", verbose=False)
+
+    def run():
+        params = {k: v.clone() for k, v in ref["params0"].items()}
+        opt = adam.adam_init(params)
+        losses = torch.stack([tr.train_step(params, opt, ref["users"][s],
+                                            ref["mask"][s],
+                                            seed_plan=ref["plans"][s])
+                              for s in ref["steps"]])
+        torch.cuda.synchronize()
+        return params, losses
+
+    pc, lc = run()
+    S = len(ref["steps"])
+    views = [tr.model.views[v] for v in ("early", "late")]
+    per_step = _plus(*(_chunk_launches(v.item_from_user.fwd,
+                                       v.user_from_item.fwd,
+                                       v.item_from_user.bwd,
+                                       v.user_from_item.bwd) for v in views))
+    counts = read_counts({**_times(per_step, S),
+                          "gather_backward": CRED_GATHERS * S,
+                          "fused_adam": CRED_ADAM * S},
+                         "cred_full_graph_chunked path")
+    # Stage A's losses are O(1e4) (phase 12): summed in another order than
+    # the CSR kernel's, they differ in their last bits, so the losses are
+    # held to a few ulps
+    loss_err, p_err, bit_csr = _held(pc, lc, ref, "Stage-A chunked steps "
+                                     "against phase 12's CSR kernel path",
+                                     loss_rtol=STAGE_A_LOSS_RTOL)
+    ulps = (lc - ref["losses"]).abs() / torch.finfo(torch.float32).eps / \
+        torch.exp2(torch.floor(torch.log2(ref["losses"].abs())))
+    pc2, lc2 = run()
+    bit = torch.equal(lc, lc2) and all(torch.equal(pc[k], pc2[k]) for k in pc)
+    if not bit:
+        raise AssertionError("two Stage-A chunked runs differ")
+    plans = {v: {"item<-user": _plan_stats(tr.model.views[v].item_from_user),
+                 "user<-item": _plan_stats(tr.model.views[v].user_from_item)}
+             for v in ("early", "late")}
+    log(f"[phase 17e] Stage A full-graph on chunk plans: {S} steps vs "
+        f"phase 12's CSR kernel path: losses "
+        f"{[round(float(x), 7) for x in lc]} max diff {loss_err:.3g}, in "
+        f"ulps {[float(u) for u in ulps]} (tol {LOSS_ATOL:g} + "
+        f"{STAGE_A_LOSS_RTOL:.3g}*|ref|), params {p_err:.3g} (tol "
+        f"{TRAIN_ATOL:g} + {TRAIN_RTOL:g}*|ref|), bit-equal {bit_csr}; two "
+        f"runs "
+        f"bit-identical; launches {counts} ({per_step} a step)")
+    return {"launches_by_kernel": counts, "launches_per_step": per_step,
+            "loss_max_diff": loss_err, "loss_ulps": [float(u) for u in ulps],
+            "param_max_diff": p_err, "bit_equal_to_csr": bit_csr,
+            "plans": plans}
+
+
+SPMM_KINDS = {"staged": "chunk_staged_kernel", "long_rows": "long_rows_kernel",
+              "rows": "rows_kernel"}
+
+
+def _device_host(fn, dev, queue: int = 0) -> dict:
+    """Device ms a call: ``queue`` calls queued ahead of the card
+    (``queued_device_ms``; calls whose host time fits the spin), else the
+    busy time of a profiled window of 3 calls; the SpMM kernels' own device
+    ms (the staged chunk kernel, the CSR row kernels) from a profiled window
+    of 5 calls that holds every one of their launches (the profiler can drop
+    records: a window is taken again, up to three, else "not measured",
+    None); host us a call."""
+    import torch
+    from importlib import import_module
+    timing = import_module(f"{PKG}.probes._timing")
+    before = _counts_now()
+    fn()
+    torch.cuda.synchronize()
+    n = {k: v - before[k] for k, v in _counts_now().items()}
+    want = {"staged": n["chunk_spmm_block"] + n["chunk_spmm_window"],
+            "rows": n["segment_spmm"] + n["gather_backward"]}
+    spmm = None
+    for _ in range(3 if sum(want.values()) else 0):
+        split, count = profile_split(fn, SPMM_KINDS, calls=5)
+        if all(count.get(k, 0) == v for k, v in want.items()):
+            spmm = sum(split.get(k, 0.0) for k in SPMM_KINDS)
+            break
+    out = {"spmm_device_ms": spmm, "host_us": host_us_per_call(fn, 20)}
+    if queue:
+        out["device_ms"] = timing.queued_device_ms(fn, dev, queue)
+    else:
+        prof = profile_steps(lambda j: fn(), 3)
+        out["device_ms"] = prof["device_ms"] / 3
+        out["busy_share"] = prof["busy_share"]
+    return out
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def phase_chunked_times(dev, ctx: dict, serving: dict, training: dict,
+                        p7: dict) -> dict:
+    """Phase 17 (f): times in turns with the CSR path: each direction's
+    apply at S = auto and S = 1, fp32 and bf16 (beside its bound and
+    torch.sparse.mm), the propagate and the train step."""
+    import torch
+    from importlib import import_module
+    timing = import_module(f"{PKG}.probes._timing")
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    adam = import_module(f"{PKG}.ops.adam")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    mods = serving["_models"]
+    params = _params(ctx, dev)
+    graph = ctx["graph"]
+    m, m1, mb = mods["chunked"].model, mods["s1"], mods["bf16"].model
+    csr = mods["csr"].model
+    mb1 = import_module(f"{PKG}.models.lightgcn").LightGCN(
+        ctx["cfg"].replace(spmm_backend="chunked", spmm_precision="bf16"),
+        graph, mods["chunked"].cred, device=dev,
+        operator_factory=_chunked_op(dev, slices=1, precision="bf16"))
+    dirs = []
+    for role, attr, x32 in (("item<-user", "item_from_user",
+                             params["user_emb"]),
+                            ("user<-item", "user_from_item",
+                             params["item_emb"])):
+        ops = {"S=auto": getattr(m, attr), "S=1": getattr(m1, attr),
+               "bf16 S=auto": getattr(mb, attr), "bf16 S=1": getattr(mb1, attr)}
+        c = getattr(csr, attr).fwd
+        xb = x32.to(torch.bfloat16)
+        xp = {k: o.src_layout.to_padded(xb if k.startswith("bf16") else x32)
+              for k, o in ops.items()}
+        fns = {k: (lambda o=o, x=xp[k]: o.apply_padded(x))
+               for k, o in ops.items()}
+
+        def plain(k):
+            def run():
+                with _plain_chunks():
+                    return fns[k]()
+            return run
+        # the plain version of the chunk kernel on the card, same plans
+        fns["plain S=auto"], fns["plain bf16 S=auto"] = (
+            plain("S=auto"), plain("bf16 S=auto"))
+        fns["csr"] = lambda: getattr(csr, attr).apply(x32)
+        fns["csr bf16"] = lambda: sc.KERNEL(c.indptr, c.src, c.w, xb,
+                                            pieces=c.pieces)
+        sp = torch.sparse_csr_tensor(c.indptr, c.src.long(), c.w,
+                                     size=(c.num_dst, c.num_src))
+        fns["torch.sparse.mm"] = lambda: torch.sparse.mm(sp, x32)
+        with torch.no_grad():
+            ms = _in_turns(fns, 20)
+            entry = {"direction": role, "ms": ms,
+                     "bound_ms": {k: sum(timing.plan_bound_ms(
+                         p, 64, x_bytes=2 if k.startswith("bf16") else 4)
+                         for p in o.fwd.plans) for k, o in ops.items()},
+                     "slices": {k: len(o.fwd.plans) for k, o in ops.items()},
+                     "window": ops["S=auto"].fwd.plans[0].window,
+                     **{k: _device_host(fns[k], dev, 20) for k in fns}}
+        entry["bound_ms"]["csr"] = bound_ms(c, 64, 4)
+        entry["bound_ms"]["csr bf16"] = bound_ms(c, 64, 2)
+        try:
+            spb = torch.sparse_csr_tensor(c.indptr, c.src.long(),
+                                          c.w.to(torch.bfloat16),
+                                          size=(c.num_dst, c.num_src))
+            with torch.no_grad():
+                entry["ms"]["torch.sparse.mm bf16"] = cuda_time_ms(
+                    lambda: torch.sparse.mm(spb, xb), 20)
+        except RuntimeError as e:       # the library may lack this dtype
+            entry["ms"]["torch.sparse.mm bf16"] = None
+            entry["sparse_mm_bf16_error"] = str(e)[:200]
+        dirs.append(entry)
+
+    # the propagate, in turns
+    models = {"csr": csr, "S=auto": m, "S=1": m1, "bf16 S=auto": mb,
+              "bf16 S=1": mb1}
+    props = {k: (lambda mm=mm: mm.propagate(params)) for k, mm in
+             models.items()}
+    with torch.no_grad():
+        prop_ms = _in_turns(props, CHUNKED_ITERS)
+        prop_dev = {k: _device_host(f, dev, 5) for k, f in props.items()}
+
+    # the train step, in turns: phase 7's CSR trainer, the chunked one
+    # (S = auto), S = 1 and bf16
+    ref = p7["_ref"]
+    single = p7["_trainer"]
+    cfg_c = ctx["cfg"].replace(spmm_backend="chunked")
+    trainers = {"csr": (single, [b for b in ref["batches"]]),
+                "S=auto": (training["_trainer"], training["_batches"])}
+    for key, kw in (("S=1", dict(operator_factory=_chunked_op(dev, 1))),
+                    ("bf16 S=auto", dict(cfg=cfg_c.replace(
+                        spmm_precision="bf16")))):
+        t = trainer_mod.RecTrainer(kw.get("cfg", cfg_c), graph, device=dev,
+                                   verbose=False,
+                                   operator_factory=kw.get("operator_factory"))
+        trainers[key] = (t, [b[:5] + (t.step_plans(b[0][None], b[1][None],
+                                                   b[2][None])[0],)
+                             for b in ref["batches"]])
+    state = {k: _params(ctx, dev) for k in trainers}
+    opts = {k: adam.adam_init(p) for k, p in state.items()}
+    steps = {k: (lambda k=k, t=t, bs=bs: t.train_step(state[k], opts[k],
+                                                      *bs[0]))
+             for k, (t, bs) in trainers.items()}
+    step_ms = _in_turns(steps, CHUNKED_ITERS)
+    step_dev = {k: _device_host(f, dev) for k, f in steps.items()}
+    log("[phase 17f] times (ms; CUDA events in turns, best of two; device "
+        "ms of calls queued ahead of the card (a step's: the profiler's busy "
+        "time), the SpMM kernels' own from the profiler; host us a call): "
+        + "; ".join(
+            f"{d['direction']} (W={d['window']}, slices "
+            f"{d['slices']['S=auto']}) " + ", ".join(
+                f"{k} {v:.4f}" if v is not None else f"{k} not measured"
+                for k, v in d["ms"].items())
+            + " | device (SpMM kernels alone) " + ", ".join(
+                f"{k} {_ms(d[k]['device_ms'])} "
+                f"({_ms(d[k]['spmm_device_ms'])})" for k in d["ms"] if k in d)
+            + " | bound " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      d["bound_ms"].items())
+            for d in dirs)
+        + "; propagate " + ", ".join(
+            f"{k} {v:.3f} (device {_ms(prop_dev[k]['device_ms'])}, SpMM "
+            f"{_ms(prop_dev[k]['spmm_device_ms'])}, host "
+            f"{prop_dev[k]['host_us']:.0f} us)" for k, v in prop_ms.items())
+        + "; train step " + ", ".join(
+            f"{k} {v:.3f} (device {_ms(step_dev[k]['device_ms'])}, SpMM "
+            f"{_ms(step_dev[k]['spmm_device_ms'])}, host "
+            f"{step_dev[k]['host_us']:.0f} us)" for k, v in step_ms.items()))
+    return {"directions": dirs, "propagate_ms": prop_ms,
+            "propagate_device": prop_dev, "step_ms": step_ms,
+            "step_device": step_dev}
+
+
+def _rounded(obj):
+    """``obj`` with every float to 6 significant digits, for the kernels'
+    line (the ``--out`` file keeps every digit)."""
+    if isinstance(obj, float):
+        return float(f"{obj:.6g}")
+    if isinstance(obj, dict):
+        return {k: _rounded(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_rounded(v) for v in obj]
+    return obj
+
+
 def launches_by_path(paths: dict, name: str) -> dict:
     """One kernel's launches on each counted path (``paths``: path name to
     the counts read after it)."""
     return {path: counts[name] for path, counts in paths.items()}
 
 
-def _probe_entry(rows, name, source, replaces, paths, err, extra):
+def _probe_entry(rows, name, source, replaces, paths, main_paths, err,
+                 extra):
     """One kernel's entry from its probe rows (summed over the rows: one
-    application per direction, or one call per slab size).  Its path is
-    the probes': ``launches`` is the count read there."""
+    application per direction, or one call per slab size).  ``launches``
+    is the sum over the main paths for a kernel that runs there (P1 and P3,
+    on the chunked paths), else the probes' count (P2 and P4); every
+    path's count is in ``launches_by_path``."""
+    on_main = sum(paths[p][name] for p in main_paths)
     return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
-            "replaces": replaces, "launches": paths["probes"][name],
+            "replaces": replaces,
+            "launches": on_main or paths["probes"][name],
             "launches_by_path": launches_by_path(paths, name),
             "max_abs_err": err,
             "ms": sum(r["ms"] for r in rows),
@@ -2835,9 +3418,12 @@ def _probe_entry(rows, name, source, replaces, paths, err, extra):
             "library_ms": sum(r["library_ms"] for r in rows), **extra}
 
 
-def probe_kernel_entries(chunk: dict, probes: dict, paths: dict) -> list:
+def probe_kernel_entries(chunk: dict, probes: dict, paths: dict,
+                         main_paths: tuple, chunked: dict) -> list:
     """The kernels' entries of the probe kernels P1-P4, from phases 9-10
-    (``paths``: each counted path's launches by kernel)."""
+    (``paths``: each counted path's launches by kernel), with P1's and P3's
+    times on the chunked main path (phase 17 (f): each direction's apply
+    at S = auto and S = 1, fp32 and bf16)."""
     kernels = []
     win_rows = probes["window_kernel"]["rows"]
     err = chunk["max_abs_err"]
@@ -2846,9 +3432,20 @@ def probe_kernel_entries(chunk: dict, probes: dict, paths: dict) -> list:
             ("chunk_spmm_window", "win W=64", REPLACES_P1),
             ("chunk_spmm_i16", "i16 R=512 T=256", REPLACES_P2)):
         rows = [r for r in win_rows if r["variant"] == variant]
+        # each direction's apply on the chunked main path: ms, device ms
+        # and bound at S = auto and S = 1, fp32 and bf16
+        on_path = [{"direction": d["direction"], "slices": d["slices"],
+                    "ms": d["ms"], "bound_ms": d["bound_ms"],
+                    "device_ms": {k: d[k]["device_ms"] for k in d["ms"]
+                                  if k in d}}
+                   for d in chunked["directions"]
+                   if CHUNK_NAMES[bool(d["window"])] == name]
         kernels.append(_probe_entry(
-            rows, name, "chunk_spmm.cu", replaces, paths, err[name],
+            rows, name, "chunk_spmm.cu", replaces, paths, main_paths,
+            err[name],
             {"shape": f"{variant}, one application per direction, D=64",
+             "max_abs_err_bf16": err.get(f"{name} bf16"),
+             "chunked_path_directions": on_path,
              "device_ms": sum(r["device_ms"] for r in rows),
              "cuda_launches_per_apply": probes["cuda_launches_by_kernel"][name],
              "directions": [{k: r[k] for k in ("direction", "ms", "device_ms",
@@ -2862,7 +3459,7 @@ def probe_kernel_entries(chunk: dict, probes: dict, paths: dict) -> list:
     g_rows = [r for r in g_all if r["route"] == "l2" and r["S"] in GATHER_SIZES]
     kernels.append(_probe_entry(
         g_rows, "row_gather", "row_gather.cu", REPLACES_P4, paths,
-        chunk["gather"]["max_abs_err"],
+        main_paths, chunk["gather"]["max_abs_err"],
         {"shape": f"one call per slab size S in {list(GATHER_SIZES)}, "
                   f"{GATHER_STEPS} * S rows, D=64, L2 route",
          "device_ms": sum(r["device_ms"] for r in g_rows),
@@ -3002,6 +3599,17 @@ def run(dev, out_path=None) -> int:
             cred_mesh = phase_cred_mesh(dev, tmp, jsonl, hg, c12)
             two_train = phase_train_two_ranks(tmp_slice, ctx, p7)
             log(f"[phase 16] done in {time.perf_counter() - t:.1f}s")
+            # ---- phase 17: the chunked backend on the main path ----
+            t = time.perf_counter()
+            ch_serve = phase_chunked_serving(dev, tmp_slice, ctx, res)
+            ch_train = phase_chunked_training(dev, tmp_slice, ctx, train, p7,
+                                              ch_serve)
+            ch_cred = phase_chunked_cred(dev, hg, c12)
+            ch_times = phase_chunked_times(dev, ctx, ch_serve, ch_train, p7)
+            for r in (ch_serve, ch_train):
+                for k in [k for k in r if k.startswith("_")]:
+                    r.pop(k)
+            log(f"[phase 17] done in {time.perf_counter() - t:.1f}s")
 
     dirs = res["directions"]
     pair = times["adam_pair"]
@@ -3018,9 +3626,14 @@ def run(dev, out_path=None) -> int:
              "cred_full_graph": cred_full["launches_by_kernel"],
              "serving_mesh": mesh["launches_by_kernel"],
              "training_mesh": rec_mesh["launches_by_kernel"],
-             "cred_full_graph_mesh": cred_mesh["launches_by_kernel"]}
+             "cred_full_graph_mesh": cred_mesh["launches_by_kernel"],
+             "serving_chunked": ch_serve["launches_by_kernel"],
+             "training_chunked": ch_train["launches_by_kernel"],
+             "cred_full_graph_chunked": ch_cred["launches_by_kernel"]}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
-                  "serving_mesh", "training_mesh", "cred_full_graph_mesh")
+                  "serving_mesh", "training_mesh", "cred_full_graph_mesh",
+                  "serving_chunked", "training_chunked",
+                  "cred_full_graph_chunked")
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",
@@ -3092,7 +3705,8 @@ def run(dev, out_path=None) -> int:
         "library_ms": sum(d["library_ms"] for d in mesh_dirs),
         "directions": mesh_dirs,
     }]
-    kernels += probe_kernel_entries(chunk, probes, paths)
+    kernels += probe_kernel_entries(chunk, probes, paths, main_paths,
+                                    ch_times)
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(
@@ -3106,6 +3720,8 @@ def run(dev, out_path=None) -> int:
              "cred_phase_seconds": seconds, "serving_mesh": mesh,
              "training_mesh": {"steps": mesh_steps, "train_rec": rec_mesh,
                                "cred": cred_mesh, "two_ranks": two_train},
+             "chunked": {"serving": ch_serve, "training": ch_train,
+                         "cred_full_graph": ch_cred, "times": ch_times},
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},
@@ -3113,7 +3729,7 @@ def run(dev, out_path=None) -> int:
             indent=1, default=float))
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _rounded(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

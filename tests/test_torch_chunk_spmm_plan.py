@@ -228,11 +228,11 @@ def test_int16_plans_take_the_staged_kernel():
     with pytest.raises(ValueError, match="int32 local ids"):
         cs._kernel(wplan, torch.int16)
     # the staged entries' signature: src, w, lid, meta, x, y, carry_val,
-    # counter, then G, T, R, [W], D, vec, device, then the stream; P2's is
-    # P3's
+    # counter, then G, T, R, [W], D, vec, bf16, device, then the stream;
+    # P2's is P3's
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    assert csc.KERNEL_BLOCK.argtypes == [ptr] * 8 + [i] * 6 + [ptr]
-    assert csc.KERNEL_WINDOW.argtypes == [ptr] * 8 + [i] * 7 + [ptr]
+    assert csc.KERNEL_BLOCK.argtypes == [ptr] * 8 + [i] * 7 + [ptr]
+    assert csc.KERNEL_WINDOW.argtypes == [ptr] * 8 + [i] * 8 + [ptr]
     assert csc.KERNEL_I16.argtypes == csc.KERNEL_BLOCK.argtypes
     assert csc.KERNEL_I16.source == csc.KERNEL_BLOCK.source
 

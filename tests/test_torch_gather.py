@@ -10,7 +10,9 @@ package's gathers and against numpy.
   a row of more than L ids in L-id pieces, added in piece order) bit for
   bit, in fp32 and bf16.
 * ``gather_plans`` builds the same plans as ``CsrDirection.from_edges``
-  over the ids; a plan that does not fit the gather raises.
+  over the ids; a plan that does not fit the gather raises; a plan over a
+  tail-padded row count gathers from the exact rows, and its gradient is
+  the padded gradient's leading rows.
 * Every row gather with a gradient in a Stage-B step and in a Stage-A
   full-graph step runs its backward through the segment-sum (counted).
 """
@@ -221,6 +223,24 @@ def _count_segment_sums(monkeypatch):
 
     monkeypatch.setattr(gather, "segment_spmm", counted)
     return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_padded_plan_on_the_exact_rows(dtype):
+    rng = np.random.default_rng(9)
+    idx = torch.as_tensor(rng.integers(0, 20, 50))
+    plan = gather.gather_plans(idx[None], 24)[0]       # 4 pad rows
+    table = torch.as_tensor(rng.standard_normal((20, 4)), dtype=dtype)
+    padded = torch.cat([table, torch.zeros(4, 4, dtype=dtype)])
+    ct = torch.as_tensor(rng.standard_normal((50, 4)), dtype=dtype)
+    a = table.clone().requires_grad_()
+    p = padded.clone().requires_grad_()
+    ra, rp = gather.gather_rows(a, idx, plan), gather.gather_rows(p, idx, plan)
+    assert torch.equal(ra, table[idx]) and torch.equal(rp, table[idx])
+    (ga,), (gp,) = (torch.autograd.grad(r, t, ct) for r, t in ((ra, a),
+                                                              (rp, p)))
+    assert ga.shape == (20, 4) and gp.shape == (24, 4)
+    assert torch.equal(ga, gp[:20]) and not gp[20:].any()
 
 
 @pytest.mark.parametrize("preset,kw,per_step", [

@@ -171,6 +171,20 @@ def test_resumed_fit_equals_uninterrupted(case, world):
         assert np.array_equal(ld(f"fit_resumed_{k}"), ld(f"fit_e2e_{k}"))
 
 
+@pytest.mark.parametrize("world", WORLDS)
+def test_chunked_backend_on_a_mesh_runs_the_csr_kernel(case, world):
+    """Under ``spmm_backend="chunked"`` the mesh's operators stay the
+    edge-sharded CSR ones (the JAX package's sharded operator ignores the
+    backend): every local sum goes through ``segment_spmm`` as
+    ``SHARDED_KERNEL``, no chunk plan runs, and the fit is the "auto" one
+    bit for bit."""
+    ld = functools.partial(case["load"], world)
+    assert ld("chunked_csr").tolist() == [True]
+    n, all_sharded, chunk_calls = ld("chunked_calls").tolist()
+    assert n > 0 and all_sharded and chunk_calls == 0
+    assert np.array_equal(ld("fit_chunked_losses"), ld("fit_e2e_losses")[:2])
+
+
 @pytest.mark.parametrize("preset", ["cu_message", "vanilla"])
 @pytest.mark.parametrize("world", WORLDS)
 def test_propagate_rows_span_layout_matches_full(case, world, preset):

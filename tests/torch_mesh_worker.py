@@ -155,8 +155,8 @@ def _data_columns(x, mesh):
 
 def suite_train(mesh, inp, save):
     """The sharded train step against its oracle, padded tables, fits
-    (popmix + fairness; per_epoch; resumed from a checkpoint),
-    ``propagate_rows`` on span layouts, and at world 2 a fit on the (2, 1)
+    (popmix + fairness; per_epoch; resumed from a checkpoint; under
+    ``spmm_backend="chunked"``), ``propagate_rows`` on span layouts, and at world 2 a fit on the (2, 1)
     mesh after the (1, 2) one (two meshes in one process)."""
     import torch.distributed as dist
     build = _imp("graph.build")
@@ -236,6 +236,32 @@ def suite_train(mesh, inp, save):
         checkpointer=ckpt.TrainCheckpointer(ck_dir), resume=True)
     for k, v in _fit_out(res).items():
         save(f"fit_resumed_{k}", v)
+
+    # "chunked" on a mesh: the sharded operators keep the CSR kernel, their
+    # local sums through segment_spmm as SHARDED_KERNEL (the JAX package's
+    # sharded operator ignores the backend); no chunk plan runs
+    spmm_cuda, op_mod = _imp("ops.spmm_cuda"), _imp("ops.spmm")
+    tr = trainer.RecTrainer(e2e.replace(spmm_backend="chunked"), graph,
+                            cred=cred, device="cpu", mesh=mesh, verbose=False)
+    ops = (tr.model.item_from_user, tr.model.user_from_item)
+    save("chunked_csr", torch.tensor([all(
+        isinstance(o, ssp.ShardedSpmmOperator) and o.backend == "auto"
+        for o in ops)]))
+    calls, chunked = [], []
+    real_csr, real_chunk = ssp.segment_spmm, op_mod.chunk_spmm_blocks
+    ssp.segment_spmm = lambda *a, **k: (calls.append(k.get("kernel")),
+                                        real_csr(*a, **k))[1]
+    op_mod.chunk_spmm_blocks = lambda *a, **k: (chunked.append(1),
+                                                real_chunk(*a, **k))[1]
+    try:
+        res = tr.fit(epochs=2)
+    finally:
+        ssp.segment_spmm, op_mod.chunk_spmm_blocks = real_csr, real_chunk
+    save("chunked_calls", torch.tensor([
+        len(calls), all(c is spmm_cuda.SHARDED_KERNEL for c in calls),
+        len(chunked)]))
+    for k, v in _fit_out(res).items():
+        save(f"fit_chunked_{k}", v)
 
     # propagate_rows on span layouts against rows of the full propagate
     users = torch.as_tensor(inp["rows_users"])
