@@ -23,7 +23,9 @@ The training steps' row gathers (``ops/gather.py``) take the SpMM kernel as
 their backward, a segment-sum of the gradient rows in a fixed order.
 Serving also runs on a device mesh (``parallel/``, ``torch.distributed``):
 the edge-sharded SpMM operator, whose local sums are the same kernel, and
-the row-sharded top-k, behind ``evaluate --mesh``.
+the row-sharded top-k, behind ``evaluate --mesh``.  The JAX system's
+performance surface and north-star pipeline are ``bench.py`` (``python -m
+<package>.bench``) and ``scripts/two_stage_10m.py``.
 
     import beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch as bbt
 """

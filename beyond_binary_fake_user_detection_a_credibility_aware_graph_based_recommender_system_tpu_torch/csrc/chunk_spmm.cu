@@ -556,10 +556,11 @@ chunk_staged_kernel(Plan<TL> plan, const XT* __restrict__ x, float* y, float* ca
       if (done & 1) reduce_span(carry_val, y, ga, len_in, base + s_lid[s_start[0]], D, ovec);
       if (done & 2) reduce_span(carry_val, y, g, len_out, base + s_lid[s_start[nr - 1]], D, ovec);
     }
-    // chunk k's stage is free: the plan of chunk k + 2
+    __syncthreads();  // the run starts and the scan's words are reused
+    // chunk k's stage is free only once every thread is past the barrier
+    // (the span sums read its local ids): the plan of chunk k + 2
     if (bulk && g + 2 * stride < G)
       load_plan(true, bar[k & 1], stg, plan, g + 2 * stride, T);
-    __syncthreads();  // the run starts and the scan's words are reused
   }
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");  // this thread's zero stores
 }

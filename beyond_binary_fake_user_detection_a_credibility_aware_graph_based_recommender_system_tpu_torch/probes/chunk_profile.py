@@ -61,7 +61,7 @@ _PROBES = [
     ("      __syncthreads();  // this buffer is refilled two items on\n",
      "      PHASE(4);\n", "after"),
     ("      const int done = s_done;\n", "      PHASE(5);\n", "before"),
-    ("    __syncthreads();  // the run starts and the scan's words are reused\n",
+    ("      load_plan(true, bar[k & 1], stg, plan, g + 2 * stride, T);\n",
      "    PHASE(6);\n    if (tid == 0) atomicAdd(&g_phase[15], 1ull);\n", "after"),
     ("  asm volatile(\"cp.async.bulk.wait_group 0;\"",
      "  if (tid == 0 && blockIdx.x < kMaxCtas) g_cta[3 * blockIdx.x + 1] = gtime();\n",

@@ -73,7 +73,11 @@ Phases (each prints one line; any failure exits non-zero):
      the reference graph in both directions; two launches bit-identical and
      bit-equal to the plain version's sequential CPU sum, pad and empty
      rows exact zeros, bf16 tables on the int32 layouts of three graphs
-     (D 64, 63, 256, a misaligned table), a K=3 padded chain; then the slab
+     (D 64, 63, 256, a misaligned table), a K=3 padded chain; the staged
+     kernel rebuilt with lagging warps (``probes/chunk_race.py``: every warp
+     but the first, or the first alone, sleeps where the CTA's warps part
+     ways) bit-equal to the CPU sum on rows that span chunks at D 63/256,
+     fp32 and bf16, bulk- and thread-loaded plans; then the slab
      row gather
      (``csrc/row_gather.cu``) at S in {512, 768, 2048, 8192, 16384},
      bit-exact, the L2 route at every S and the shared-memory route in
@@ -168,11 +172,33 @@ Phases (each prints one line; any failure exits non-zero):
      in turns with the CSR path: each direction's apply at S = auto and
      S = 1, fp32 and bf16 (bound, torch.sparse.mm), the propagate and the
      train step (CUDA events, profiler device ms, host us).
+ 18. the north star (``bench.py``, ``scripts/two_stage_10m.py``): (a) the
+     port's ``bench.main`` in process at reference scale in ``--mode
+     epoch`` and ``--mode step``: one JSON line each with the JAX bench's
+     keys, a finite positive value, edges_per_step = E*K*2*2 (E = 360,207);
+     (b) the planted 10M-edge graph (500,000 users, 1,000,000 items; its
+     split must be 6,899,612 / 864,551 / 861,347 edges) under
+     ``scaled_10m`` (D=128, K=4, batch 8,192, per_epoch), counted as the
+     ``northstar`` path: ``bench_northstar`` (8 ``segment_spmm`` a
+     propagate; an epoch 8 for its cache, then 4 ``gather_backward`` and 1
+     ``fused_adam`` a step) and one full evaluate on val (8 more); held
+     against the plain path on the card: propagated tables (rtol 1e-5 /
+     atol 1e-6), 3 steps (phase 7's tolerances), the top-20 of 4,096 val
+     users (Jaccard >= 0.99), no stock scatter in a profiled step; times:
+     the host's set-up by part, the propagate (events, device time by
+     kernel, the hub's pieces), the epoch by part, the step split, K1/K2,
+     the step's two gather backwards and Adam on both tables against
+     their bounds, plain versions and library calls, the peak memory by
+     part; (c) the port's ``scripts/two_stage_10m.run`` on the same graph,
+     counted as the ``northstar_two_stage`` path: Stage A in SLAS mode
+     (``slas_pad_deg=128``; 1 ``fused_adam`` a step, no SpMM, no gather
+     backward) for 1 epoch of 6, the CSV, Stage B under ``scaled_10m`` for
+     1 epoch of 12 reading all 500,000 users from it; scores finite in
+     [0, 1], finite metrics.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
-3, 6, 10, 11, 12, 15, 16 (b), (c) and 17 (a), (d), (e)) and read after it;
-a kernel that is
-not on that path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
+3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e) and 18 (b), (c)) and
+read after it; a kernel that is not on that path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
 JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -181,6 +207,7 @@ JSON; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -1587,6 +1614,16 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
                     f"by {float((got - want).abs().max())}")
     chain_err = max(float((lay_u.from_padded(u) - cu).abs().max()),
                     float((lay_i.from_padded(i) - ci).abs().max()))
+    # a plan stage or row buffer reused before every warp is done with it
+    # shows only when a warp lags: make warps lag and hold the sums
+    t = time.perf_counter()
+    race = import_module(f"{PKG}.probes.chunk_race").run(dev)
+    for v, r in race["variants"].items():
+        if r["differs"]:
+            raise AssertionError(f"chunk kernel with lagging warps ({v}): "
+                                 f"not bit-equal to the CPU sum on "
+                                 f"{', '.join(r['differs'])}")
+    race["seconds"] = time.perf_counter() - t
     log(f"[phase 9] chunked kernels vs plain: {n} cases ok "
         f"({len(cases)} graphs x {len(CHUNK_LAYOUTS)} layouts "
         f"(T 30/32/36/256/1024, int32 and int16 ids) "
@@ -1601,6 +1638,10 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
         + f" (tol {FP32_ATOL:g} + {FP32_RTOL:g}*sum|w*x|), every case "
         f"bit-equal to the plain version's sequential CPU sum; K=3 padded "
         f"chain: pad rows zero, max diff from the CSR chain {chain_err:.3g}")
+    log(f"[phase 9] chunk kernel with lagging warps ({race['lag_ns']} ns "
+        f"sleeps): " + "; ".join(f"{v} {r['cases']} cases bit-equal"
+                                 for v, r in race["variants"].items())
+        + f" ({race['seconds']:.1f}s)")
 
     gather = {"max_abs_err": 0.0, "sizes": []}
     for S in (GATHER_SIZES[0], GATHER_SMEM_MAX) + GATHER_SIZES[1:]:
@@ -1636,6 +1677,7 @@ def phase_chunk_vs_plain(dev, dirs) -> dict:
     return {"max_abs_err": worst, "cases": n, "wide_cases": wide,
             "bf16_cases": bf16_cases,
             "hub_block_chunks": hub_chunks, "padded_chain_max_diff": chain_err,
+            "lagging_warps": race,
             "gather": gather}
 
 
@@ -3380,6 +3422,437 @@ def phase_chunked_times(dev, ctx: dict, serving: dict, training: dict,
             "step_device": step_dev}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the north star (bench.py, scripts/two_stage_10m.py)
+# --------------------------------------------------------------------------
+
+# the bench's headline at reference scale (phase 3's graph), in both modes
+BENCH_ARGS = ["--scale", "ref", "--iters", "4", "--no-northstar"]
+BENCH_REF_EDGES = 360_207     # the reference graph's train edges
+BENCH_LAYERS = 3              # the bench's default --layers
+JAX_HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline",
+                     "vs_baseline_same_precision")
+JAX_NORTHSTAR_KEYS = ("metric", "value", "unit", "definition", "propagate_s",
+                      "epoch_s")
+# the planted graph's train / val / test edges in the JAX package's 10M run
+# (runs/two_stage_10m/pipeline.log)
+NORTHSTAR_SPLIT = (6_899_612, 864_551, 861_347)
+NORTHSTAR_ITERS = 3           # bench_northstar's timed loops (the JAX bench's)
+NORTHSTAR_SAMPLE = 4096       # val users of the top-20 check
+TOPK_BATCH = 512              # users a ranking call (the preset's eval_batch)
+NORTHSTAR_GATHERS = 4         # gather backwards a per_epoch step
+# epochs of the two-stage run: Stage A (SLAS) and Stage B, of the JAX
+# script's 6 and 12
+TWO_STAGE_EPOCHS = (1, 1)
+
+
+class _Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        import io
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def _peak_gb(peaks: dict, name: str):
+    """Records in ``peaks[name]`` the card's peak allocated GB inside."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+
+
+def _finite_metrics(res: dict, tag: str) -> None:
+    for K, r in res.items():
+        if not all(np.isfinite(r[m]) and 0.0 <= r[m] <= 1.0
+                   for m in ("precision", "recall", "ndcg")):
+            raise AssertionError(f"{tag}: metric out of range at K={K}: {r}")
+
+
+def phase_bench_headline(dev) -> dict:
+    """Phase 18 (a): the port's ``bench.main`` in process at reference
+    scale, ``--mode epoch`` (the headline) and ``--mode step``: one JSON
+    line each with the JAX bench's keys, a finite positive value and
+    ``edges_per_step`` = E*K*2*2 (E = 360,207, K = 3); the kernel path
+    launched the SpMM, the gathers' backward and Adam."""
+    import io
+    from importlib import import_module
+    bench = import_module(f"{PKG}.bench")
+    out = {}
+    for mode in ("epoch", "step"):
+        buf = io.StringIO()
+        before = _counts_now()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ret = bench.main(BENCH_ARGS + ["--mode", mode,
+                                           "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        if lines != [json.loads(json.dumps(ret))]:
+            raise AssertionError(f"bench --mode {mode} printed {lines}")
+        line = lines[0]
+        missing = [k for k in JAX_HEADLINE_KEYS if k not in line]
+        if missing or line["metric"] != "train_edges_per_sec_per_chip":
+            raise AssertionError(f"bench --mode {mode}: {line} lacks "
+                                 f"{missing}")
+        if not (np.isfinite(line["value"]) and line["value"] > 0
+                and line["vs_baseline"] > 0):
+            raise AssertionError(f"bench --mode {mode}: {line}")
+        if line["edges_per_step"] != BENCH_REF_EDGES * BENCH_LAYERS * 4:
+            raise AssertionError(f"bench --mode {mode}: edges_per_step "
+                                 f"{line['edges_per_step']}")
+        launched = {n: k.launches - before[n]
+                    for n, k in kernel_counters().items()}
+        if not all(launched[n] for n in ("segment_spmm", "gather_backward",
+                                         "fused_adam")):
+            raise AssertionError(f"bench --mode {mode} launched {launched}")
+        out[mode] = {"line": line, "wall_s": wall,
+                     "launches_by_kernel": launched}
+        log(f"[phase 18a] bench --mode {mode} ({wall:.1f}s, launches "
+            f"{launched}): {json.dumps(line)}")
+    return out
+
+
+def phase_northstar(dev, graph) -> dict:
+    """Phase 18 (b): the ``scaled_10m`` preset at full width on the planted
+    10M-edge graph.  Counted as the ``northstar`` path: ``bench_northstar``
+    (its propagations and epochs), then one full evaluate on val.  Held on
+    the card against the plain path (``spmm_backend="torch"``): the
+    propagated tables, 3 steps, the top-20 of NORTHSTAR_SAMPLE val users;
+    a profiled step runs no stock scatter.  Times: the host's set-up by
+    part, the propagate, the epoch by part, the step split, the kernels at
+    these shapes; the card's peak memory by part."""
+    import torch
+    from importlib import import_module
+    bench = import_module(f"{PKG}.bench")
+    operators = import_module(f"{PKG}.graph.operators")
+    spmm = import_module(f"{PKG}.ops.spmm")
+    sampling = import_module(f"{PKG}.ops.sampling")
+    ranking = import_module(f"{PKG}.eval.ranking")
+    retrieval = import_module(f"{PKG}.eval.retrieval")
+    adam = import_module(f"{PKG}.ops.adam")
+    sc = import_module(f"{PKG}.ops.spmm_cuda")
+    tm = import_module(f"{PKG}.probes._timing")
+    peaks = {}
+
+    # ---- the host's set-up: the trainer, then each part alone ----
+    host = {}
+    t = time.perf_counter()
+    with _peak_gb(peaks, "trainer"):
+        tr = bench.northstar_trainer(graph, dev)
+    host["trainer_s"] = time.perf_counter() - t
+    cfg = tr.cfg
+    K = cfg.num_layers
+    t = time.perf_counter()
+    em = operators.build_edge_maps(graph, cfg.weight_mode, tr.cred)[0]
+    host["edge_maps_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    d = spmm.CsrDirection.from_edges(em.src, em.dst, em.w, em.num_src,
+                                     em.num_dst, dev)
+    torch.cuda.synchronize()
+    host["csr_direction_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sc.long_row_pieces(d.indptr)
+    host["long_row_pieces_s"] = time.perf_counter() - t
+    del em, d
+    deg_i = graph.train_item_degrees()
+    t = time.perf_counter()
+    sampling.build_alias_table((deg_i + 1.0) ** cfg.neg_pop_gamma)
+    host["alias_table_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sampling.PopMixSampler.build(deg_i, dev, mix_pop=cfg.neg_mix_pop,
+                                 gamma=cfg.neg_pop_gamma)
+    host["popmix_sampler_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ranking.EvalContext.build(graph, dev, membership=cfg.membership)
+    torch.cuda.synchronize()
+    host["eval_context_s"] = time.perf_counter() - t
+    nb = -(-tr.train_users.size // cfg.batch_size)
+    it = NORTHSTAR_ITERS
+
+    # ---- the northstar path, counted ----
+    reset_counts()
+    t = time.perf_counter()
+    with _peak_gb(peaks, "bench_northstar"):
+        line = bench.bench_northstar(trainer=tr, iters=it)
+    bench_s = time.perf_counter() - t
+    params, _, gen = tr.init_state()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _peak_gb(peaks, "evaluate_full_val"):
+        val = tr.evaluate(params, "val")
+    eval_s = time.perf_counter() - t
+    # a propagation: 2K SpMM; an epoch: its cache's propagation, then nb
+    # steps of 4 gather backwards and one Adam launch; each loop runs
+    # one call untimed first; the evaluate: one propagation
+    counts = read_counts(
+        {"segment_spmm": 2 * K * (1 + it) * 2 + 2 * K,
+         "gather_backward": NORTHSTAR_GATHERS * nb * (1 + it),
+         "fused_adam": nb * (1 + it)}, "northstar path")
+    missing = [k for k in JAX_NORTHSTAR_KEYS if k not in line]
+    E = graph.train_edges.shape[1]
+    if missing or line["metric"] != \
+            "northstar_propagation_edges_per_sec_per_chip" \
+            or line["value"] != E * 2 * K / line["propagate_s"] \
+            or not (line["value"] > 0 and line["epoch_s"] > 0):
+        raise AssertionError(f"bench_northstar returned {line}")
+    _finite_metrics(val, "northstar full evaluate")
+    log(f"[phase 18b] northstar (scaled_10m D={cfg.emb_dim} K={K} batch "
+        f"{cfg.batch_size}, {nb} steps an epoch): host set-up "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+        + f"; bench_northstar ({it} timed + 1) {bench_s:.1f}s: "
+        f"{json.dumps(line)}; full evaluate on val {eval_s:.2f}s (R@20 "
+        f"{val[20]['recall']:.6f}, {val[20]['users_eval']} users); "
+        f"launches {counts}")
+
+    # ---- held on the card against the plain path ----
+    with _peak_gb(peaks, "plain_trainer"):
+        tr_p = bench.northstar_trainer(graph, dev, spmm_backend="torch")
+    with torch.no_grad(), _peak_gb(peaks, "propagate_pair"):
+        u_k, i_k = tr.model.propagate(params)
+        before = _counts_now()
+        u_p, i_p = tr_p.model.propagate(params)
+        _launched(before, {}, "the plain propagate")
+    if not (_close(u_k, u_p) and _close(i_k, i_p)):
+        raise AssertionError("northstar: propagated tables differ from the "
+                             "plain path's")
+    tab_err = max(float((u_k - u_p).abs().max()),
+                  float((i_k - i_p).abs().max()))
+    users, pos, neg, mask = tr.draw_epoch(gen)
+    plans = tr.step_plans(users[:PARITY_STEPS], pos[:PARITY_STEPS],
+                          neg[:PARITY_STEPS])
+
+    def run_steps(t_):
+        p = {k: v.clone() for k, v in params.items()}
+        o = adam.adam_init(p)
+        cached = t_._epoch_cache(p)
+        losses = torch.stack([
+            t_.train_step(p, o, users[s], pos[s], neg[s], mask[s], cached,
+                          plans[s]) for s in range(PARITY_STEPS)])
+        torch.cuda.synchronize()
+        return p, losses
+
+    before = _counts_now()
+    with _peak_gb(peaks, "three_steps"):
+        pk, lk = run_steps(tr)
+    _launched(before, {"segment_spmm": 2 * K,
+                       "gather_backward": NORTHSTAR_GATHERS * PARITY_STEPS,
+                       "fused_adam": PARITY_STEPS}, "northstar kernel steps")
+    before = _counts_now()
+    pp, lp = run_steps(tr_p)
+    _launched(before, {}, "northstar plain steps")
+    loss_err, p_err, bit = _held(pk, lk, {"params": pp, "losses": lp},
+                                 "northstar: the kernel path against the "
+                                 "plain path")
+    del pk, pp
+    sample = tr.ctx.eval_users["val"][:NORTHSTAR_SAMPLE]
+    tops = ([], [])
+    for s in range(0, sample.size, TOPK_BATCH):
+        us = sample[s:s + TOPK_BATCH]
+        ut = torch.as_tensor(us, device=dev)
+        excl = torch.as_tensor(retrieval.exclusion_rows_for_users(graph, us),
+                               device=dev)
+        for top, (ue, ie) in zip(tops, ((u_k, i_k), (u_p, i_p))):
+            top.append(retrieval.topk_for_users(
+                ue, ie, ut, 20, exclude_batch_rows=excl)[1].cpu().numpy())
+    jac = _jaccard(np.concatenate(tops[0]), np.concatenate(tops[1]))
+    if jac.mean() < 0.99:
+        raise AssertionError(f"northstar top-20 Jaccard {jac.mean()} < 0.99")
+    del u_p, i_p, tr_p
+    p3 = {k: v.clone() for k, v in params.items()}
+    o3 = adam.adam_init(p3)
+    cached = tr._epoch_cache(p3)
+
+    def step(j=0):
+        tr.train_step(p3, o3, users[j], pos[j], neg[j], mask[j], cached,
+                      plans[j])
+
+    _no_scatter(step, "northstar step")
+    log(f"[phase 18b] vs the plain path on the card: tables max abs diff "
+        f"{tab_err:.3g} (tol {FP32_ATOL:g} + {FP32_RTOL:g}*|ref|); "
+        f"{PARITY_STEPS} steps: losses {[round(float(x), 7) for x in lk]} "
+        f"max diff {loss_err:.3g}, params max diff {p_err:.3g}, bit-equal "
+        f"{bit}; top-20 Jaccard over {sample.size} val users mean "
+        f"{jac.mean():.6f} min {jac.min():.4f}; no stock scatter in a "
+        f"profiled step")
+
+    # ---- times ----
+    iu, ui = tr.model.item_from_user.fwd, tr.model.user_from_item.fwd
+    with torch.no_grad():
+        prop_ms = cuda_time_ms(lambda: tr.model.propagate(params), 5,
+                               warmup=1)
+        # the profiler can drop records: a window is taken again, up to
+        # three, until it holds a propagate's 2K row kernels
+        for _ in range(3):
+            prop_split, prop_launches = profile_split(
+                lambda: tr.model.propagate(params),
+                {"long_rows": "long_rows_kernel", "rows": "rows_kernel"},
+                calls=3)
+            if prop_launches.get("rows") == 2 * K:
+                break
+    prop_device = sum(prop_split.values())
+    deg = iu.indptr[1:] - iu.indptr[:-1]
+    hub = int(deg.max())
+    epoch = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batches = tr.draw_epoch(gen)
+    torch.cuda.synchronize()
+    epoch["draw_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    all_plans = tr.step_plans(*batches[:3])
+    torch.cuda.synchronize()
+    epoch["plans_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cached_e = tr._epoch_cache(p3)
+    torch.cuda.synchronize()
+    epoch["cache_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for s in range(nb):
+        tr.train_step(p3, o3, *(x[s] for x in batches), cached_e,
+                      all_plans[s])
+    torch.cuda.synchronize()
+    epoch["steps_s"] = time.perf_counter() - t
+    del all_plans, cached_e, batches
+    split = step_split(
+        lambda leaves, j: tr._loss_fn(leaves, users[j], pos[j], neg[j],
+                                      mask[j], cached, plans[j]),
+        p3, o3, cfg.lr, PARITY_STEPS)
+    prof = profile_steps(step)
+    rows = []
+    for role, dd, x in (("K1 item<-user", iu, params["user_emb"]),
+                        ("K2 user<-item", ui, params["item_emb"])):
+        x = x.contiguous()
+        r = time_direction(role, dd, x)
+        # device time alone: the calls queued ahead of the card
+        r["device_ms"] = tm.queued_device_ms(
+            lambda: sc.KERNEL(dd.indptr, dd.src, dd.w, x, pieces=dd.pieces),
+            dev)
+        rows.append(r)
+    g = torch.Generator(device=dev).manual_seed(0)
+    gathers = [time_gather(f"north star step's users into "
+                           f"{graph.num_users:,} rows", plans[0][0],
+                           users[0], cfg.emb_dim, g),
+               time_gather(f"north star step's items into "
+                           f"{graph.num_items:,} rows", plans[0][1],
+                           torch.cat([pos[0], neg[0]]), cfg.emb_dim, g)]
+    del cached, p3, o3
+    adam_pair = time_adam(params, adam.adam_scalars(1, cfg.lr), cfg.lr, g)
+    log(f"[phase 18b] times: propagate {prop_ms:.3f} ms (CUDA events; "
+        f"device by kernel {', '.join(f'{k} {v:.3f}' for k, v in prop_split.items())}"
+        f", long_rows_kernel {100 * prop_split.get('long_rows', 0.0) / prop_device:.1f}%"
+        f" of {prop_device:.3f} device ms; CUDA launches {prop_launches}); "
+        f"item<-user hub {hub:,} edges ({-(-hub // iu.pieces.edges_per_piece)}"
+        f" pieces; {iu.pieces.num_long} long rows, {iu.pieces.num_pieces} "
+        f"pieces); epoch by part (s) {', '.join(f'{k} {v:.3f}' for k, v in epoch.items())}"
+        f"; step split (ms) {', '.join(f'{k} {v:.3f}' for k, v in split.items())}"
+        f"; profiled step window {prof['window_ms']:.2f} ms, device "
+        f"{prof['device_ms']:.3f} ms ({100 * prof['busy_share']:.1f}% busy)"
+        f"; peak GB {', '.join(f'{k} {v:.2f}' for k, v in peaks.items())}")
+    log("[phase 18b] kernels at the north star's shapes (ms): " + "; ".join(
+        f"{r['role']} ({r['edges']:,} edges, D={cfg.emb_dim}) kernel "
+        f"{r['ms']:.4f} device {r['device_ms']:.4f} plain {r['plain_ms']:.4f} "
+        f"sparse.mm {r['library_ms']:.4f} bound {r['bound_ms']:.4f}"
+        for r in rows) + "; " + _gather_line(gathers) + "; "
+        + _adam_line("both tables", adam_pair))
+    del tr, u_k, i_k, params
+    return {"launches_by_kernel": counts, "split": NORTHSTAR_SPLIT,
+            "steps_per_epoch": nb, "host_setup_s": host, "line": line,
+            "bench_northstar_s": bench_s, "evaluate_full_val_s": eval_s,
+            "val_metrics": val, "table_max_abs_diff": tab_err,
+            "steps_loss_max_diff": loss_err, "steps_param_max_diff": p_err,
+            "steps_bit_equal": bit, "jaccard_mean": float(jac.mean()),
+            "jaccard_min": float(jac.min()), "propagate_ms": prop_ms,
+            "propagate_device_split_ms": prop_split,
+            "propagate_cuda_launches": prop_launches,
+            "propagate_profile_complete": prop_launches.get("rows") == 2 * K,
+            "long_rows_share": prop_split.get("long_rows", 0.0) / prop_device,
+            "hub_degree": hub, "hub_pieces":
+                -(-hub // iu.pieces.edges_per_piece),
+            "long_rows": iu.pieces.num_long, "pieces": iu.pieces.num_pieces,
+            "epoch_split_s": epoch, "step_split_ms": split,
+            "profiled_step": prof, "peak_gb": peaks, "directions": rows,
+            "gather_backward": gathers, "adam_pair": adam_pair}
+
+
+def phase_northstar_two_stage(dev, graph, tmp: Path) -> dict:
+    """Phase 18 (c): the port's ``scripts/two_stage_10m.run`` on the
+    planted graph, counted as the ``northstar_two_stage`` path: Stage A in
+    SLAS mode (``slas_pad_deg=128``; no SpMM, no gather backward, one Adam
+    launch a step), the CSV, then Stage B under ``scaled_10m`` reading it
+    for every user; valid scores, finite metrics."""
+    import re
+    import torch
+    from importlib import import_module
+    ts = import_module(f"{PKG}.scripts.two_stage_10m")
+    config = import_module(f"{PKG}.utils.config")
+    presets = import_module(f"{PKG}.configs.presets")
+    cfg_b = presets.get_preset("scaled_10m")
+    ep_a, ep_b = TWO_STAGE_EPOCHS
+    out = tmp / "two_stage_10m"
+    reset_counts()
+    tee = _Tee(sys.stdout)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        summary = ts.run(graph, out, cred_epochs=ep_a, rec_epochs=ep_b,
+                         pad_deg=CRED_PAD_DEG, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    sa, sb = summary["stage_a"], summary["stage_b"]
+    n_a = int(0.8 * sa["labeled_users"])
+    steps_a = -(-n_a // min(config.CredConfig().batch_size, n_a))
+    n_b = int((graph.user_csr("train").degrees() > 0).sum())
+    nb = -(-n_b // cfg_b.batch_size)
+    K = cfg_b.num_layers
+    # Stage A: one Adam launch a step and nothing else; Stage B: an epoch's
+    # cache (2K SpMM), 4 gathers and 1 Adam a step, 2K SpMM an evaluation
+    # (val each epoch, test once)
+    counts = read_counts(
+        {"segment_spmm": 2 * K * (2 * ep_b + 1),
+         "gather_backward": NORTHSTAR_GATHERS * nb * ep_b,
+         "fused_adam": steps_a * ep_a + nb * ep_b},
+        "northstar two-stage path")
+    scores = np.load(out / "credibility_scores_minmax.npy")
+    if scores.shape != (graph.num_users,) or not np.isfinite(scores).all() \
+            or scores.min() < 0.0 or scores.max() > 1.0:
+        raise AssertionError(f"two-stage scores {scores.shape} in "
+                             f"[{scores.min()}, {scores.max()}]")
+    used = re.findall(r"used=([\d,]+)", tee.buf.getvalue())
+    if [int(u.replace(",", "")) for u in used] != [graph.num_users]:
+        raise AssertionError(f"Stage B read {used} users from the CSV, "
+                             f"not {graph.num_users:,}")
+    if not all(np.isfinite(sa[k]) for k in ("holdout_auc_final",
+                                           "holdout_bce_final")):
+        raise AssertionError(f"Stage A holdout {sa}")
+    _finite_metrics({int(k): v for k, v in sb["test"].items()},
+                    "two-stage Stage B test")
+    log(f"[phase 18c] two_stage_10m on the planted graph ({wall:.1f}s): "
+        f"Stage A SLAS pad {CRED_PAD_DEG}, {steps_a} steps an epoch: setup "
+        f"{sa['setup_seconds']:.1f}s, {ep_a} epoch in "
+        f"{sa['wall_seconds']:.1f}s ({sa['seconds_per_epoch']}), holdout "
+        f"AUC {sa['holdout_auc_final']:.4f}, peak {sa['peak_hbm_gb']} "
+        f"GB; Stage B read {used[0]} users from the CSV, {ep_b} epoch "
+        f"({nb} steps) in {sb['wall_seconds']:.1f}s, best val R@20 "
+        f"{sb['best_val_recall']:.6f}, test R@20 "
+        f"{sb['test']['20']['recall']:.6f}, peak {sb['peak_hbm_gb']} "
+        f"GB; launches {counts} (Stage A: fused_adam {steps_a * ep_a}, "
+        f"segment_spmm 0, gather_backward 0)")
+    return {"launches_by_kernel": counts, "summary": summary,
+            "wall_s": wall, "stage_a_steps_per_epoch": steps_a,
+            "stage_b_steps_per_epoch": nb}
+
+
 def _rounded(obj):
     """``obj`` with every float to 6 significant digits, for the kernels'
     line (the ``--out`` file keeps every digit)."""
@@ -3512,9 +3985,13 @@ def build_kernels() -> tuple:
     for m in mods:
         for k in getattr(m, "KERNELS", None) or (m.KERNEL,):
             by_source.setdefault(k.source, k)
+    # phase 9's copies of the chunk kernel with lagging warps, built alongside
+    cr = import_module(f"{PKG}.probes.chunk_race")
+    lagged = [cr.lagged_kernel(v) for v in cr.VARIANTS]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(by_source)) as pool:
-        libs = list(pool.map(lambda k: k.build(), by_source.values()))
+    with ThreadPoolExecutor(len(by_source) + len(lagged)) as pool:
+        libs = list(pool.map(lambda k: k.build(),
+                              [*by_source.values(), *lagged]))[:len(by_source)]
     built, ptxas = [], {}
     for k, lib in zip(by_source.values(), libs):
         lines = [ln.strip() for ln in k.build_log.splitlines()
@@ -3611,6 +4088,25 @@ def run(dev, out_path=None) -> int:
                     r.pop(k)
             log(f"[phase 17] done in {time.perf_counter() - t:.1f}s")
 
+    # ---- phase 18: the north star ----
+    t18 = time.perf_counter()
+    torch.cuda.empty_cache()
+    bench_line = phase_bench_headline(dev)
+    t = time.perf_counter()
+    ns_graph = import_module(f"{PKG}.bench").northstar_graph()
+    split = tuple(ns_graph.edges(s).shape[1] for s in ("train", "val", "test"))
+    log(f"[phase 18] planted graph {ns_graph.summary()} built in "
+        f"{time.perf_counter() - t:.1f}s (host)")
+    if split != NORTHSTAR_SPLIT:
+        raise AssertionError(f"planted graph split {split}, not "
+                             f"{NORTHSTAR_SPLIT}")
+    northstar = phase_northstar(dev, ns_graph)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ns_two = phase_northstar_two_stage(dev, ns_graph, Path(tmp))
+    del ns_graph
+    log(f"[phase 18] done in {time.perf_counter() - t18:.1f}s")
+
     dirs = res["directions"]
     pair = times["adam_pair"]
     cred_gathers = cred_times["gather_backward"]
@@ -3629,11 +4125,14 @@ def run(dev, out_path=None) -> int:
              "cred_full_graph_mesh": cred_mesh["launches_by_kernel"],
              "serving_chunked": ch_serve["launches_by_kernel"],
              "training_chunked": ch_train["launches_by_kernel"],
-             "cred_full_graph_chunked": ch_cred["launches_by_kernel"]}
+             "cred_full_graph_chunked": ch_cred["launches_by_kernel"],
+             "northstar": northstar["launches_by_kernel"],
+             "northstar_two_stage": ns_two["launches_by_kernel"]}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
                   "serving_mesh", "training_mesh", "cred_full_graph_mesh",
                   "serving_chunked", "training_chunked",
-                  "cred_full_graph_chunked")
+                  "cred_full_graph_chunked", "northstar",
+                  "northstar_two_stage")
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",
@@ -3656,6 +4155,7 @@ def run(dev, out_path=None) -> int:
         "backward_directions": times["backward_directions"],
         "item_from_user_split_ms": res["item_from_user_split_ms"],
         "cred_directions": cred_times["spmm_directions"],
+        "northstar_directions": northstar["directions"],
     }, {
         "name": "fused_adam",
         "route": "cuda",
@@ -3670,6 +4170,7 @@ def run(dev, out_path=None) -> int:
         "bound_by": "bytes",
         "leaves": times["adam_leaves"],
         "cred_leaves": cred_times["adam_leaves"],
+        "northstar_tables": northstar["adam_pair"],
     }, {
         "name": "gather_backward",
         "route": "cuda",
@@ -3686,7 +4187,8 @@ def run(dev, out_path=None) -> int:
         "bound_by": "bytes",
         "library_ms": sum(e["library_ms"] for e in cred_gathers),
         "index_put_ms": sum(e["index_put_ms"] for e in cred_gathers),
-        "cases": cred_gathers + times["gather_backward"],
+        "cases": cred_gathers + times["gather_backward"]
+        + northstar["gather_backward"],
         "checked": gather_check["cases"],
     }, {
         "name": "sharded_spmm",
@@ -3722,6 +4224,8 @@ def run(dev, out_path=None) -> int:
                                "cred": cred_mesh, "two_ranks": two_train},
              "chunked": {"serving": ch_serve, "training": ch_train,
                          "cred_full_graph": ch_cred, "times": ch_times},
+             "northstar": {"bench": bench_line, "scaled_10m": northstar,
+                           "two_stage": ns_two},
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},

@@ -30,7 +30,7 @@ import torch
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops import chunk_spmm as cs
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops import chunk_spmm_cuda as csc
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops.segment_plan import build_segment_plan
-from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.probes import chunk_profile
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.probes import chunk_profile, chunk_race
 
 # (block rows R, chunk edges T, window W): T = 6 takes the threads' plan
 # load; T = 12 a bulk load with int32 ids, the threads' with int16 ones
@@ -255,6 +255,33 @@ def test_profile_probe_needs_the_card():
             chunk_profile.main([])
 
 
+@pytest.mark.parametrize("variant", list(chunk_race.VARIANTS))
+def test_race_probe_writes_each_variant(variant):
+    """Every lag point of ``probes/chunk_race.py`` is found once in the
+    kernel source, and only the variant's warps sleep."""
+    text = chunk_race.lagged_source(variant).read_text()
+    lag = f"if ({chunk_race.VARIANTS[variant]}) __nanosleep("
+    assert text.count(lag) == len(chunk_race.LAG_POINTS)
+    assert text.count("__nanosleep(") == len(chunk_race.LAG_POINTS)
+
+
+def test_race_probe_cases_span_chunks():
+    """The probe's graphs hold rows that run across chunks in every layout
+    (span sums), and its widths have more than one warp sum a span."""
+    graphs = chunk_race.graphs()
+    for src, dst, w, ns, nd in graphs.values():
+        for R, T, W, lid in chunk_race.LAYOUTS.values():
+            plan = build_segment_plan(src, dst, w, nd, block_rows=R,
+                                      chunk_edges=T, num_src=ns, window=W)
+            flags = plan.chunk_meta()[:, 3]
+            assert bool(((flags >> 3) & 1).any())     # a chunk opens a span
+    # reduce_span gives a thread a column (D % 4) or 4: over 32 threads
+    for D in chunk_race.WIDTHS:
+        assert (D if D % 4 else D // 4) > 32
+    with pytest.raises(RuntimeError, match="needs the card"):
+        chunk_race.run("cpu")
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py phase 9 runs these "
@@ -337,3 +364,13 @@ def test_staged_window_kernel_on_card(W):
     dst = np.sort(rng.integers(0, 5_000, E))
     _check_on_card((src, dst, rng.normal(size=E).astype(np.float32), 3_000,
                     5_000, 512, 256, W), 64)
+
+
+@pytest.mark.cuda
+def test_staged_kernel_under_lagging_warps_on_card():
+    """A plan stage is refilled only after every warp is done with it: with
+    warps made to lag, each launch stays bit-equal to the CPU sum."""
+    _card()
+    res = chunk_race.run("cuda")
+    for v, r in res["variants"].items():
+        assert r["cases"] > 0 and r["differs"] == [], (v, r["differs"])
