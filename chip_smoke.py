@@ -195,10 +195,35 @@ Phases (each prints one line; any failure exits non-zero):
      backward) for 1 epoch of 6, the CSV, Stage B under ``scaled_10m`` for
      1 epoch of 12 reading all 500,000 users from it; scores finite in
      [0, 1], finite metrics.
+ 19. the reference protocol's entry points (``scripts/reference_regression.py``,
+     ``parity_run.py``, ``two_stage_demo.py``, ``examples/end_to_end.py``),
+     in process at full width and short depth, each counted as its own
+     path: (a) ``reference_regression --scale ref --epochs 1`` for the six
+     presets of the JAX package's ``runs/SUMMARY.md`` (``reference_regression``):
+     every printed line in the reference's log format (``LOG_LINE``), the
+     metrics JSONL with the keys of the JAX record of the same preset plus
+     ``card``, finite test metrics, each preset's launches as the trainer's
+     code gives them; (b) ``parity_run build`` at its defaults,
+     ``framework`` on the seven configurations (seed 0, 4 epochs, val every
+     2) and ``--fast`` on cu_message (``parity_framework``), then ``report``
+     against the committed oracle records: a row a configuration and
+     metric, each with a verdict; (c) ``two_stage_demo.run`` on phase 11's
+     JSONL with ``--pad-deg 128``, Stage A 1 epoch (1 ``fused_adam`` a
+     step, nothing else), Stage B 2 epochs (``two_stage_demo``): scores
+     finite in [0, 1], ``summary.json`` with the JAX script's keys, a score
+     from the CSV for every graph user; (d) ``examples/end_to_end`` at its
+     own size (``end_to_end``): finite metrics.  After each path is read,
+     the shapes it gave the kernels that no earlier phase holds are held
+     against the plain path (``spmm_backend="torch"``) from one seed: one
+     propagate's tables and 3 train steps at phase 7's tolerances, for
+     vanilla's joint table and degree_aware's and cred_eq322's weights at
+     reference scale in (a), the seven configurations on the parity graph
+     in (b) and Stage B on the demo's graph with its credibility in (c).
 
 Every kernel's launch counter is set to 0 before each counted path (phases
-3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e) and 18 (b), (c)) and
-read after it; a kernel that is not on that path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
+3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e), 18 (b), (c) and 19
+(a)-(d)) and read after it; a kernel that is not on that path must show 0
+there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
 JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -1790,32 +1815,12 @@ CRED_ARTEFACTS = ("user_labels.csv", "user_features.csv", "graph_hetero.npz",
 
 def write_reviews(path: Path, lines: int, users: int, items: int,
                   seed: int = 0) -> None:
-    """``make_synthetic_reviews`` of ``scripts/two_stage_demo.py``: the same
-    draws in the same order, so the same JSONL (lognormal user activity,
-    zipf-1.05 item popularity, ratings skewed to 4-5)."""
-    rng = np.random.default_rng(seed)
-    user_w = rng.lognormal(0.0, 1.2, users)
-    item_w = 1.0 / np.arange(1, items + 1) ** 1.05
-    u = rng.choice(users, size=lines, p=user_w / user_w.sum())
-    i = rng.choice(items, size=lines, p=item_w / item_w.sum())
-    ratings = rng.choice([1.0, 2.0, 3.0, 4.0, 5.0], size=lines,
-                         p=[0.06, 0.06, 0.13, 0.25, 0.50])
-    ts = (1.45e12 + rng.integers(0, int(1.5e11), lines)).astype(np.int64)
-    helpful = rng.choice([0, 1, 2, 3, 8, 15], size=lines,
-                         p=[0.55, 0.2, 0.1, 0.05, 0.06, 0.04])
-    verified = rng.random(lines) < 0.75
-    texts = ["great fit and color really nice quality",
-             "did not like it returned the item",
-             "good value for the price would buy again",
-             "terrible don't buy this product it broke"]
-    with open(path, "w") as f:
-        for k in range(lines):
-            f.write(json.dumps({
-                "user_id": f"U{u[k]:07d}", "parent_asin": f"B{i[k]:08d}",
-                "rating": float(ratings[k]), "timestamp": int(ts[k]),
-                "helpful_vote": int(helpful[k]),
-                "verified_purchase": bool(verified[k]), "title": "review",
-                "text": texts[k % 4]}) + "\n")
+    """The port's ``scripts/two_stage_demo.make_synthetic_reviews``, the
+    JAX script's stream byte for byte (lognormal user activity, zipf-1.05
+    item popularity, ratings skewed to 4-5)."""
+    from importlib import import_module
+    import_module(f"{PKG}.scripts.two_stage_demo").make_synthetic_reviews(
+        path, lines, users, items, seed)
 
 
 def cred_steps_per_epoch(hg, batch_size: int) -> int:
@@ -3446,19 +3451,14 @@ NORTHSTAR_GATHERS = 4         # gather backwards a per_epoch step
 TWO_STAGE_EPOCHS = (1, 1)
 
 
-class _Tee:
-    """A stdout that also keeps what was written."""
-
-    def __init__(self, out):
-        import io
-        self.out, self.buf = out, io.StringIO()
-
-    def write(self, s):
-        self.out.write(s)
-        return self.buf.write(s)
-
-    def flush(self):
-        self.out.flush()
+def _tee(out) -> tuple:
+    """A stdout that writes to ``out`` and keeps what was written:
+    (the stream, its buffer)."""
+    import io
+    from importlib import import_module
+    buf = io.StringIO()
+    return import_module(f"{PKG}.scripts.reference_regression").Tee(
+        out, buf), buf
 
 
 @contextlib.contextmanager
@@ -3802,7 +3802,7 @@ def phase_northstar_two_stage(dev, graph, tmp: Path) -> dict:
     ep_a, ep_b = TWO_STAGE_EPOCHS
     out = tmp / "two_stage_10m"
     reset_counts()
-    tee = _Tee(sys.stdout)
+    tee, buf = _tee(sys.stdout)
     t = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         summary = ts.run(graph, out, cred_epochs=ep_a, rec_epochs=ep_b,
@@ -3828,7 +3828,7 @@ def phase_northstar_two_stage(dev, graph, tmp: Path) -> dict:
             or scores.min() < 0.0 or scores.max() > 1.0:
         raise AssertionError(f"two-stage scores {scores.shape} in "
                              f"[{scores.min()}, {scores.max()}]")
-    used = re.findall(r"used=([\d,]+)", tee.buf.getvalue())
+    used = re.findall(r"used=([\d,]+)", buf.getvalue())
     if [int(u.replace(",", "")) for u in used] != [graph.num_users]:
         raise AssertionError(f"Stage B read {used} users from the CSV, "
                              f"not {graph.num_users:,}")
@@ -3851,6 +3851,430 @@ def phase_northstar_two_stage(dev, graph, tmp: Path) -> dict:
     return {"launches_by_kernel": counts, "summary": summary,
             "wall_s": wall, "stage_a_steps_per_epoch": steps_a,
             "stage_b_steps_per_epoch": nb}
+
+
+# --------------------------------------------------------------------------
+# phase 19: the reference protocol's entry points (scripts/, examples/)
+# --------------------------------------------------------------------------
+
+# the six reference runs of the JAX package's runs/SUMMARY.md
+PROTOCOL_PRESETS = ("vanilla", "cu_message", "pop_neg", "degree_aware",
+                    "pop_extended", "cred_eq322")
+PROTOCOL_EPOCHS = 1           # of 400
+# the presets whose operator or weights no earlier phase holds against the
+# plain path: vanilla's joint table, degree_aware's and cred_eq322's weights
+HELD_PRESETS = ("vanilla", "degree_aware", "cred_eq322")
+PARITY_EPOCHS = 4             # of 200, validated every PARITY_EVAL_EVERY
+PARITY_EVAL_EVERY = 2
+DEMO_EPOCHS = (1, 2)          # the two-stage demo's Stage A and B, of 60, 400
+STEP_GATHERS = 10             # gather backwards a per_batch step at K=3
+# one line of a reference-format log, written from the JAX package's
+# runs/cu_message_ref_scale.out (the K= lines also take the extended fields
+# of format_metrics_block; the device line names the card here)
+_MET = r"=\d+\.\d{4} "
+LOG_LINE = (
+    r"(Loaded edges\. Users=[\d,]+ Items=[\d,]+ Train=[\d,]+ Val=[\d,]+ "
+    r"Test=[\d,]+"
+    r"|Using device: .+"
+    r"|Epoch \d{2,} \| loss=\d+\.\d{6}"
+    r"|(VAL|TEST) metrics:"
+    r"|  K=\d+: P=\d\.\d{4} R=\d\.\d{4} NDCG=\d\.\d{4} "
+    rf"(COV{_MET}LogPop{_MET}SI{_MET}(CredU{_MET}HighR{_MET}LowR{_MET})?)?"
+    r"\((sampled\(1pos\+neg\)|full)\)"
+    r"|  saved best \(val Recall@20=\d\.\d{4}\)"
+    r"|\[REGRESSION\] preset=\w+ epochs=\d+ wall=\d+\.\ds "
+    r"epochs/hour=\d+\.\d propagation_edges_per_sec=[\d,]+"
+    r"|)")
+
+
+def _applies(cfg) -> int:
+    """SpMM applications of one propagate: one a layer on the joint
+    table, two (item<-user, user<-item) on split tables."""
+    return cfg.num_layers * (1 if cfg.propagation == "symmetric" else 2)
+
+
+def _per_batch_counts(cfg, steps: int, epochs: int, evals: int) -> dict:
+    """A per_batch fit's launches (``train/trainer.py``): a step runs
+    its propagate forward and backward, the K+1 user and K+1 item gathers
+    of ``propagate_rows`` and the two ego gathers, one Adam launch; each
+    evaluation one propagate."""
+    P = _applies(cfg)
+    return {"segment_spmm": 2 * P * steps * epochs + P * evals,
+            "gather_backward": (2 * (cfg.num_layers + 1) + 2)
+            * steps * epochs,
+            "fused_adam": steps * epochs}
+
+
+def _keys(rec) -> dict:
+    """A metrics record's keys, nested one level into the metric dicts."""
+    out = {}
+    for k, v in rec.items():
+        if isinstance(v, dict):
+            out[k] = {K: sorted(m) if isinstance(m, dict) else None
+                      for K, m in v.items()}
+        else:
+            out[k] = None
+    return out
+
+
+def _held_against_plain(tr_k, tr_p, tag: str) -> dict:
+    """Phase 7's check on another graph or configuration: the trainer
+    ``tr_k`` (the kernels) against ``tr_p`` (the same configuration with
+    ``spmm_backend="torch"``), from ``tr_k``'s seed: one propagate's
+    tables (``_close``) and PARITY_STEPS train steps (``_held``).  The
+    kernel path launches what the step's code gives, the plain path
+    nothing; none of it counts on a path."""
+    import torch
+    from importlib import import_module
+    adam = import_module(f"{PKG}.ops.adam")
+    cfg = tr_k.cfg
+    P, K = _applies(cfg), cfg.num_layers
+    params, _, gen = tr_k.init_state()
+    with torch.no_grad():
+        before = _counts_now()
+        u_k, i_k = tr_k.model.propagate(params)
+        _launched(before, {"segment_spmm": P}, f"{tag}: kernel propagate")
+        before = _counts_now()
+        u_p, i_p = tr_p.model.propagate(params)
+        _launched(before, {}, f"{tag}: plain propagate")
+    if not (_close(u_k, u_p) and _close(i_k, i_p)):
+        raise AssertionError(f"{tag}: propagated tables differ from the "
+                             f"plain path's")
+    tab_err = max(float((u_k - u_p).abs().max()),
+                  float((i_k - i_p).abs().max()))
+    users, pos, neg, mask = tr_k.draw_epoch(gen)
+    plans = tr_k.step_plans(users, pos, neg)
+    steps = [i % users.shape[0] for i in range(PARITY_STEPS)]
+
+    def run(tr):
+        p = {k: v.clone() for k, v in params.items()}
+        o = adam.adam_init(p)
+        losses = torch.stack([tr.train_step(p, o, users[s], pos[s], neg[s],
+                                            mask[s], None, plans[s])
+                              for s in steps])
+        torch.cuda.synchronize()
+        return p, losses
+
+    before = _counts_now()
+    pk, lk = run(tr_k)
+    _launched(before, {"segment_spmm": 2 * P * PARITY_STEPS,
+                       "gather_backward": (2 * (K + 1) + 2) * PARITY_STEPS,
+                       "fused_adam": PARITY_STEPS}, f"{tag}: kernel steps")
+    before = _counts_now()
+    pp, lp = run(tr_p)
+    _launched(before, {}, f"{tag}: plain steps")
+    loss_err, p_err, bit = _held(pk, lk, {"params": pp, "losses": lp},
+                                 f"{tag}: the kernel path against the "
+                                 f"plain path")
+    return {"table_max_diff": tab_err, "loss_max_diff": loss_err,
+            "param_max_diff": p_err, "bit_identical": bit,
+            "table_rows": (int(u_k.shape[0]), int(i_k.shape[0]))}
+
+
+def _held_line(held: dict) -> str:
+    return "; ".join(
+        f"{k} tables {h['table_rows']} max diff {h['table_max_diff']:.3g}, "
+        f"{PARITY_STEPS} steps: losses {h['loss_max_diff']:.3g}, params "
+        f"{h['param_max_diff']:.3g}" for k, h in held.items())
+
+
+def phase_reference_regression(dev, tmp: Path) -> dict:
+    """Phase 19 (a): ``scripts/reference_regression.main`` at ``--scale
+    ref`` for each preset of PROTOCOL_PRESETS, counted together as the
+    ``reference_regression`` path; every printed line in the reference's
+    log format, the metrics JSONL with the keys of the JAX package's
+    record of the same preset (plus ``card`` on the final line), finite
+    test metrics, each preset's launches as the trainer's code gives
+    them."""
+    import re
+    from importlib import import_module
+    rr = import_module(f"{PKG}.scripts.reference_regression")
+    presets = import_module(f"{PKG}.configs.presets")
+    root = Path(__file__).resolve().parent
+    graph = rr.scale_graph("ref")
+    n_train = int((graph.user_csr("train").degrees() > 0).sum())
+    line_re = re.compile(LOG_LINE)
+    reset_counts()
+    total, runs = {}, {}
+    for p in PROTOCOL_PRESETS:
+        cfg = presets.get_preset(p)
+        steps = -(-n_train // cfg.batch_size)
+        before = _counts_now()
+        metrics = tmp / f"{p}_metrics.jsonl"
+        tee, buf = _tee(sys.stdout)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            final = rr.main(["--preset", p, "--epochs", str(PROTOCOL_EPOCHS),
+                             "--scale", "ref", "--metrics-jsonl", str(metrics),
+                             "--device", str(dev)])
+        wall = time.perf_counter() - t
+        want = _per_batch_counts(cfg, steps, PROTOCOL_EPOCHS,
+                                 PROTOCOL_EPOCHS + 1)
+        got = _launched(before, want, f"reference_regression {p}")
+        total = _plus(total, want)
+        bad = [ln for ln in buf.getvalue().splitlines()
+               if not line_re.fullmatch(ln)]
+        if bad:
+            raise AssertionError(f"reference_regression {p}: lines not in "
+                                 f"the reference's format: {bad[:3]}")
+        ours = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+        jax = [json.loads(ln) for ln in
+               (root / "runs" / f"{p}_ref_scale_metrics.jsonl")
+               .read_text().splitlines()]
+        want_final = {**_keys(jax[-1]), "card": None}
+        if len(ours) != PROTOCOL_EPOCHS + 1 \
+                or any(_keys(r) != _keys(jax[0]) for r in ours[:-1]) \
+                or _keys(ours[-1]) != want_final:
+            raise AssertionError(f"reference_regression {p}: metrics keys "
+                                 f"{[_keys(r) for r in ours]}, JAX's "
+                                 f"{_keys(jax[0])} / {want_final}")
+        _finite_metrics({int(k): v for k, v in final["test"].items()},
+                        f"reference_regression {p} test")
+        runs[p] = {"wall_s": wall, "steps_per_epoch": steps,
+                   "launches_by_kernel": got,
+                   "test_recall_20": final["test"]["20"]["recall"],
+                   "card": final["card"]}
+    counts = read_counts(total, "reference_regression path")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    held = {}
+    for p in HELD_PRESETS:
+        cfg = presets.get_preset(p)
+        held[p] = _held_against_plain(
+            trainer_mod.RecTrainer(cfg, graph, device=dev, verbose=False),
+            trainer_mod.RecTrainer(cfg.replace(spmm_backend="torch"), graph,
+                                   device=dev, verbose=False),
+            f"reference_regression {p}")
+    log(f"[phase 19a] reference_regression --scale ref --epochs "
+        f"{PROTOCOL_EPOCHS}, {len(PROTOCOL_PRESETS)} presets: " + "; ".join(
+            f"{p} {r['wall_s']:.1f}s, {r['steps_per_epoch']} steps, test "
+            f"R@20 {r['test_recall_20']:.4f}, {r['launches_by_kernel']}"
+            for p, r in runs.items())
+        + "; every line in the reference's format, the metrics keys JAX's; "
+        "held against the plain path: " + _held_line(held))
+    return {"launches_by_kernel": counts, "runs": runs,
+            "held_against_plain": held}
+
+
+def phase_parity(dev, tmp: Path) -> dict:
+    """Phase 19 (b): ``scripts/parity_run`` counted as the
+    ``parity_framework`` path: ``build`` at its defaults, ``framework`` on
+    every configuration (seed 0, PARITY_EPOCHS epochs) and ``--fast`` on
+    cu_message, then ``report`` against the committed oracle records:
+    one row a configuration and metric, each with a verdict."""
+    import io
+    from importlib import import_module
+    pr = import_module(f"{PKG}.scripts.parity_run")
+    config = import_module(f"{PKG}.utils.config")
+    root = Path(__file__).resolve().parent
+    d = tmp / "parity"
+    graph_path = d / "graph.npz"
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pr.main(["build", "--out", str(graph_path)])
+    z = np.load(graph_path)
+    n_train = int(np.unique(z["train_edges"][0]).size)
+    evals = PARITY_EPOCHS // PARITY_EVAL_EVERY + 1
+    want, recs = {}, []
+    for name, fast in [(c, False) for c in pr.CONFIG_MAP] \
+            + [("cu_message", True)]:
+        argv = ["framework", "--graph", str(graph_path), "--config", name,
+                "--seed", "0", "--epochs", str(PARITY_EPOCHS),
+                "--eval-every", str(PARITY_EVAL_EVERY), "--device", str(dev),
+                "--out", str(d / ("framework_fast.jsonl" if fast
+                                  else "framework.jsonl"))]
+        cfg = config.RecConfig(**pr.CONFIG_MAP[name],
+                               **(pr.FAST_FLAGS if fast else {}))
+        steps = -(-n_train // cfg.batch_size)
+        if fast:
+            # per_epoch: a cache propagate an epoch, no SpMM in a step,
+            # the two batch-row and two ego gathers
+            P = _applies(cfg)
+            c = {"segment_spmm": P * (PARITY_EPOCHS + evals),
+                 "gather_backward": NORTHSTAR_GATHERS * steps * PARITY_EPOCHS,
+                 "fused_adam": steps * PARITY_EPOCHS}
+        else:
+            c = _per_batch_counts(cfg, steps, PARITY_EPOCHS, evals)
+        before = _counts_now()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = pr.main(argv + (["--fast"] if fast else []))
+        _launched(before, c, f"parity_run framework {name} fast={fast}")
+        want = _plus(want, c)
+        if set(rec) != {"config", "seed", "best_val", "test", "fast",
+                        "eval_mode", "seconds", "card"}:
+            raise AssertionError(f"parity framework record {sorted(rec)}")
+        _finite_metrics({int(k): v for k, v in rec["test"].items()},
+                        f"parity {name} fast={fast}")
+        recs.append(rec)
+    counts = read_counts(want, "parity_framework path")
+    wall = time.perf_counter() - t
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    build = import_module(f"{PKG}.graph.build")
+    graph = build.BipartiteGraph(
+        num_users=int(z["num_users"]), num_items=int(z["num_items"]),
+        train_edges=z["train_edges"], val_edges=z["val_edges"],
+        test_edges=z["test_edges"])
+    cred = np.load(d / "cred.npy").astype(np.float32)
+    held = {}
+    for name in pr.CONFIG_MAP:
+        cfg = config.RecConfig(name=f"parity_{name}", seed=0,
+                               **pr.CONFIG_MAP[name])
+        c_ = cred if name in pr.REAL_CRED else None
+        held[name] = _held_against_plain(
+            trainer_mod.RecTrainer(cfg, graph, cred=c_, device=dev,
+                                   verbose=False),
+            trainer_mod.RecTrainer(cfg.replace(spmm_backend="torch"), graph,
+                                   cred=c_, device=dev, verbose=False),
+            f"parity_run {name}")
+    report = tmp / "QUALITY_PARITY.md"
+    with contextlib.redirect_stdout(io.StringIO()):
+        text = pr.main(["report", "--dir", str(d), "--jax-dir",
+                        str(root / "runs" / "parity"),
+                        "--report-out", str(report)])
+    rows = [[c.strip() for c in ln.strip().strip("|").split("|")]
+            for ln in text.splitlines() if ln.startswith("| ")
+            and not ln.startswith("| Config")]
+    want_rows = [(c, m + "@20") for c in pr.REPORT_CONFIGS
+                 for m in ["recall", "ndcg"]
+                 + (list(pr.EXT_METRICS) if c == "pop_extended" else [])] \
+        + [(c, m + "@20") for c in pr.FAST_CONFIGS for m in ("recall", "ndcg")]
+    if [tuple(r[:2]) for r in rows] != want_rows \
+            or any(len(r) != 8 for r in rows) \
+            or sum(r[-1] in ("PASS", "FAIL") for r in rows) != 2 * 7 + 6 + 2:
+        raise AssertionError(f"parity report rows {rows}")
+    log(f"[phase 19b] parity_run: build ({int(z['num_users']):,} users, "
+        f"{z['train_edges'].shape[1]:,} train edges), framework on "
+        f"{len(pr.CONFIG_MAP)} configurations + --fast cu_message (seed 0, "
+        f"{PARITY_EPOCHS} epochs, {-(-n_train // 4096)} steps an epoch) in "
+        f"{wall:.1f}s, test R@20 "
+        + ", ".join(f"{r['config']}{'(fast)' if r['fast'] else ''} "
+                    f"{r['test'][20]['recall']:.4f}" for r in recs)
+        + f"; launches {counts}; report: {len(rows)} rows, "
+        f"{sum(r[-1] in ('PASS', 'FAIL') for r in rows)} with a verdict; "
+        "held against the plain path: " + _held_line(held))
+    return {"launches_by_kernel": counts, "wall_s": wall, "records": recs,
+            "held_against_plain": held}
+
+
+def phase_two_stage_demo(dev, tmp: Path, jsonl: Path) -> dict:
+    """Phase 19 (c): ``scripts/two_stage_demo.run`` on phase 11's JSONL,
+    counted as the ``two_stage_demo`` path: Stage A in SLAS mode
+    (``--pad-deg 128``; one Adam launch a step, no SpMM, no gather
+    backward) for DEMO_EPOCHS[0] epoch, the CSV, then Stage B under
+    ``cred_eq322`` for DEMO_EPOCHS[1] epochs reading a score for every
+    graph user; scores finite in [0, 1], ``summary.json`` with the JAX
+    script's keys."""
+    import re
+    import torch
+    from importlib import import_module
+    ts = import_module(f"{PKG}.scripts.two_stage_demo")
+    presets = import_module(f"{PKG}.configs.presets")
+    ingest = import_module(f"{PKG}.data.ingest")
+    build = import_module(f"{PKG}.graph.build")
+    root = Path(__file__).resolve().parent
+    ep_a, ep_b = DEMO_EPOCHS
+    out = tmp / "two_stage_demo"
+    reset_counts()
+    tee, buf = _tee(sys.stdout)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        summary = ts.run(jsonl, out, cred_epochs=ep_a, rec_epochs=ep_b,
+                         pad_deg=CRED_PAD_DEG, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    text = buf.getvalue()
+    n_a = int(re.search(r"train=([\d,]+)", text).group(1).replace(",", ""))
+    steps_a = -(-n_a // min(import_module(f"{PKG}.utils.config")
+                             .CredConfig().batch_size, n_a))
+    # Stage B's graph, as the demo builds it
+    graph = build.build_bipartite_graph(ingest.ingest_jsonl(jsonl))
+    cfg_b = presets.get_preset("cred_eq322")
+    n_b = int((graph.user_csr("train").degrees() > 0).sum())
+    nb = -(-n_b // cfg_b.batch_size)
+    want = _plus({"fused_adam": steps_a * ep_a},
+                        _per_batch_counts(cfg_b, nb, ep_b, ep_b + 1))
+    counts = read_counts(want, "two_stage_demo path")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    cfg_c = cfg_b.replace(cred_csv_path=str(
+        out / "credibility_scores_minmax_with_user_id.csv"))
+    held = {"cred_eq322 (Stage B)": _held_against_plain(
+        trainer_mod.RecTrainer(cfg_c, graph, device=dev, verbose=False),
+        trainer_mod.RecTrainer(cfg_c.replace(spmm_backend="torch"), graph,
+                               device=dev, verbose=False),
+        "two_stage_demo Stage B")}
+    scores = np.load(out / "credibility_scores_minmax.npy")
+    if not np.isfinite(scores).all() or scores.min() < 0.0 \
+            or scores.max() > 1.0:
+        raise AssertionError(f"two-stage demo scores in "
+                             f"[{scores.min()}, {scores.max()}]")
+    used = re.findall(r"used=([\d,]+)", text)
+    if [int(u.replace(",", "")) for u in used] != [graph.num_users]:
+        raise AssertionError(f"Stage B read {used} users from the CSV, "
+                             f"not {graph.num_users:,}")
+    jax_keys = set(json.loads((root / "runs" / "two_stage" / "summary.json")
+                              .read_text()))
+    written = json.loads((out / "summary.json").read_text())
+    if set(written) != jax_keys | {"card", "stage_a"} \
+            or len(written["stage_a"]["history"]) != ep_a:
+        raise AssertionError(f"two-stage summary keys {sorted(written)}")
+    _finite_metrics({int(k): v for k, v in summary["test"].items()},
+                    "two-stage demo Stage B test")
+    h = summary["stage_a"]["history"][-1]
+    log(f"[phase 19c] two_stage_demo on phase 11's JSONL ({wall:.1f}s): "
+        f"Stage A SLAS pad {CRED_PAD_DEG}, {steps_a} steps, {ep_a} epoch in "
+        f"{summary['stage_a']['wall_seconds']:.1f}s, holdout AUC "
+        f"{h['holdout_auc']:.4f}; Stage B ({graph.summary()}, {nb} steps) "
+        f"read {used[0]} users from the CSV, {ep_b} epochs in "
+        f"{summary['stage_b_wall_seconds']:.1f}s, test R@20 "
+        f"{summary['test']['20']['recall']:.4f}; launches {counts}; held "
+        "against the plain path: " + _held_line(held))
+    return {"launches_by_kernel": counts, "wall_s": wall,
+            "held_against_plain": held,
+            "stage_a_steps_per_epoch": steps_a, "stage_b_steps_per_epoch": nb,
+            "summary": summary}
+
+
+def phase_end_to_end(dev, tmp: Path) -> dict:
+    """Phase 19 (d): ``examples/end_to_end.main`` at its own size, counted
+    as the ``end_to_end`` path (Stage A in SLAS mode, one Adam launch a
+    step; Stage B under ``pop_extended``, batch 128); finite metrics."""
+    import io
+    from importlib import import_module
+    e2e = import_module(f"{PKG}.examples.end_to_end")
+    ingest = import_module(f"{PKG}.data.ingest")
+    build = import_module(f"{PKG}.graph.build")
+    presets = import_module(f"{PKG}.configs.presets")
+    features = import_module(f"{PKG}.data.features")
+    hetero = import_module(f"{PKG}.graph.hetero")
+    out = tmp / "end_to_end"
+    reset_counts()
+    tee, buf = _tee(io.StringIO())
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        res = e2e.main(["--out", str(out), "--device", str(dev)])
+    wall = time.perf_counter() - t
+    # the example's graph and heterograph, rebuilt from its stream
+    table = ingest.ingest_jsonl(out / "reviews.jsonl")
+    graph = build.build_bipartite_graph(table)
+    hg = hetero.build_heterograph(table, features.compute_user_features(table))
+    ep_a, batch_a = 10, 64
+    ep_b, batch_b = 8, 128
+    steps_a = cred_steps_per_epoch(hg, batch_a)
+    cfg_b = presets.get_preset("pop_extended")
+    nb = -(-int((graph.user_csr("train").degrees() > 0).sum()) // batch_b)
+    want = _plus({"fused_adam": steps_a * ep_a},
+                        _per_batch_counts(cfg_b, nb, ep_b, ep_b + 1))
+    counts = read_counts(want, "end_to_end path")
+    if len(res.history) != ep_b or not all(np.isfinite(h.loss)
+                                           for h in res.history):
+        raise AssertionError(f"end_to_end losses {res.history}")
+    _finite_metrics(res.test_metrics, "end_to_end test")
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[e2e]")]
+    log(f"[phase 19d] end_to_end ({wall:.1f}s; Stage A {steps_a} step an "
+        f"epoch, Stage B {nb} steps): {' | '.join(lines[-2:])}; launches "
+        f"{counts}")
+    return {"launches_by_kernel": counts, "wall_s": wall, "lines": lines}
 
 
 def _rounded(obj):
@@ -4023,6 +4447,9 @@ def run(dev, out_path=None) -> int:
     worst = phase_kernel_vs_plain(dev, probe_dirs)
     worst_adam = phase_adam_vs_plain(dev)
     gather_check = phase_gather_vs_plain(dev)
+    # phase 11's review JSONL lives until phase 19 (c) reads it again
+    reviews_tmp = tempfile.TemporaryDirectory()
+    reviews_dir = Path(reviews_tmp.name)
     # phase 3's directory (graph, credibility CSV, parameters) lives until
     # phase 15 serves from it
     with tempfile.TemporaryDirectory() as tmp_slice:
@@ -4040,7 +4467,7 @@ def run(dev, out_path=None) -> int:
         log(f"[phases 9-10] {time.perf_counter() - t9:.1f}s")
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
-            jsonl = tmp / "reviews.jsonl"
+            jsonl = reviews_dir / "reviews.jsonl"
             t = time.perf_counter()
             write_reviews(jsonl, **CRED_REVIEWS)
             log(f"[phase 11] wrote {CRED_REVIEWS['lines']:,} review lines "
@@ -4107,14 +4534,29 @@ def run(dev, out_path=None) -> int:
     del ns_graph
     log(f"[phase 18] done in {time.perf_counter() - t18:.1f}s")
 
+    # ---- phase 19: the reference protocol's entry points ----
+    t19 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        protocol = {"reference_regression":
+                    phase_reference_regression(dev, tmp),
+                    "parity_framework": phase_parity(dev, tmp),
+                    "two_stage_demo": phase_two_stage_demo(
+                        dev, tmp, reviews_dir / "reviews.jsonl"),
+                    "end_to_end": phase_end_to_end(dev, tmp)}
+    reviews_tmp.cleanup()
+    log(f"[phase 19] done in {time.perf_counter() - t19:.1f}s")
+
     dirs = res["directions"]
     pair = times["adam_pair"]
     cred_gathers = cred_times["gather_backward"]
     # every kernel's count, read after each counted path: serving (phase
     # 3), training (phase 6), the probes (phase 10), Stage A in SLAS mode
     # (phase 11) and in full-graph mode (phase 12), serving on a mesh
-    # (phase 15), training on a mesh (phase 16 (b)) and Stage A's full
-    # graph on a mesh (phase 16 (c))
+    # (phase 15), training on a mesh (phase 16 (b)), Stage A's full graph
+    # on a mesh (phase 16 (c)), the chunked backend (phase 17), the north
+    # star (phase 18) and the protocol's entry points (phase 19)
     paths = {"serving": res["launches_by_kernel"],
              "training": train["launches_by_kernel"],
              "probes": probes["launches"],
@@ -4127,12 +4569,13 @@ def run(dev, out_path=None) -> int:
              "training_chunked": ch_train["launches_by_kernel"],
              "cred_full_graph_chunked": ch_cred["launches_by_kernel"],
              "northstar": northstar["launches_by_kernel"],
-             "northstar_two_stage": ns_two["launches_by_kernel"]}
+             "northstar_two_stage": ns_two["launches_by_kernel"],
+             **{k: v["launches_by_kernel"] for k, v in protocol.items()}}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
                   "serving_mesh", "training_mesh", "cred_full_graph_mesh",
                   "serving_chunked", "training_chunked",
                   "cred_full_graph_chunked", "northstar",
-                  "northstar_two_stage")
+                  "northstar_two_stage", *protocol)
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",
@@ -4226,6 +4669,7 @@ def run(dev, out_path=None) -> int:
                          "cred_full_graph": ch_cred, "times": ch_times},
              "northstar": {"bench": bench_line, "scaled_10m": northstar,
                            "two_stage": ns_two},
+             "protocol": protocol,
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},
