@@ -13,8 +13,10 @@ one seed through the port's ``RecTrainer`` under the reference protocol
 Recall@20) and appends one JSON line with the JAX script's keys and the
 card.  ``report`` holds the port's records against the reference oracle's
 (``scripts/parity_oracle.py``, torch on the CPU; its committed records are
-read, not re-run) with the JAX report's tables and tolerance rule, and
-shows the JAX framework's mean beside the port's.
+read, not re-run) with the JAX report's tables and tolerance rule, shows
+the JAX framework's mean beside the port's, and ends, as the JAX report
+does, with the Stage-A parity report (``cred_parity_run report``'s
+``stage_a.md`` in ``cred_parity_run.DIR``) when there is one.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from .cred_parity_run import DIR as STAGE_A_DIR
 
 CONFIG_MAP = {
     # parity preset fields for the framework side (all reference-protocol)
@@ -183,7 +187,8 @@ def _row(config, metric, o, f, j, full: bool) -> str:
 def report_lines(frame_dir, jax_dir) -> list:
     """The report's markdown lines: the port's records in ``frame_dir``
     against the oracle's in ``jax_dir``, the JAX framework's records there
-    beside them."""
+    beside them; then, as the JAX report ends, the Stage-A parity report
+    (``cred_parity_run report``) in STAGE_A_DIR when one is there."""
     fd, jd = Path(frame_dir), Path(jax_dir)
     oracle = _load_jsonl(jd / "oracle.jsonl")
     frame = _load_jsonl(fd / "framework.jsonl")
@@ -255,6 +260,11 @@ def report_lines(frame_dir, jax_dir) -> list:
                                   _agg(frame_fast, config, metric=metric),
                                   _agg(jax_fast, config, metric=metric),
                                   full=True))
+    stage_a = Path(STAGE_A_DIR) / "stage_a.md"
+    if stage_a.exists():
+        lines += ["", stage_a.read_text().rstrip(),
+                  "", f"Raw Stage-A artifacts: `{STAGE_A_DIR}/` "
+                  "(`python -m <port>.scripts.cred_parity_run`)."]
     return lines
 
 

@@ -219,11 +219,32 @@ Phases (each prints one line; any failure exits non-zero):
      vanilla's joint table and degree_aware's and cred_eq322's weights at
      reference scale in (a), the seven configurations on the parity graph
      in (b) and Stage B on the demo's graph with its credibility in (c).
+ 20. the remaining protocol drivers (``scripts/cred_parity_run.py``,
+     ``eval_equiv_r4.py``, ``schedule_compare.py``, ``ingest_bench.py``,
+     ``probes/eval_breakdown.py``) in process at full width and short
+     depth, each counted as its own path: (a) ``cred_parity_run build``
+     (3,000 users), ``framework`` in both modes for 2 epochs and a
+     ``downstream`` pair (cu_message and cred_eq322 on the oracle's scores)
+     for 2 epochs (``cred_parity``; full-graph mode 8 SpMM, 5 gather
+     backwards and 1 Adam a step, 2 SpMM a holdout and 2 for the
+     inference; SLAS 1 Adam a step), then ``report`` against the committed
+     oracle vector: its rows and verdict line; (b) on phase 18's planted
+     graph, ``schedule_compare`` with ``per_batch`` for 1 epoch
+     (``schedule_compare``: 16 SpMM, 12 gather backwards and 1 Adam a
+     step), the JAX record's keys, then one propagate and 3 ``per_batch``
+     steps held against ``spmm_backend="torch"`` on the card (phase 7's
+     tolerances); (c) ``eval_equiv_r4 overlap`` in all three modes on
+     4,096 val users, on (b)'s kernel trainer after one epoch
+     (``eval_equiv``: one propagate): approx equal to exact, bf16 mean
+     Jaccard@20 >= 0.9; (d) ``ingest_bench`` on phase 11's JSONL: every line
+     kept, no kernel launched; (e) ``eval_breakdown`` for 2 batches of 512
+     val users over the 1,000,000 items: every part timed, chunked top-k
+     sets equal to full-width ones, no kernel launched.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
-3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e), 18 (b), (c) and 19
-(a)-(d)) and read after it; a kernel that is not on that path must show 0
-there.  It imports nothing of the JAX package.  It needs one CUDA card and
+3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e), 18 (b), (c), 19
+(a)-(d) and 20 (a)-(e)) and read after it; a kernel that is not on that
+path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
 JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -1915,6 +1936,50 @@ def phase_cred_slas(dev, tmp: Path, jsonl: Path) -> dict:
             "num_edges": hg.num_edges, "_hg": hg, "_out": out}
 
 
+def _cred_held_against_plain(tr_k, tr_p, tag: str) -> dict:
+    """PARITY_STEPS full-graph Stage-A steps of ``tr_k`` (the kernels)
+    against ``tr_p`` (the same configuration with ``backend="torch"``)
+    from one state, at phase 7's tolerances (``_held``); the kernel path
+    launches what a step's code gives, the plain path nothing.  Returns
+    the differences, the steps' inputs and the kernel path's results
+    (``ref``), and ``run``, which repeats the steps on a trainer."""
+    import torch
+    from importlib import import_module
+    adam = import_module(f"{PKG}.ops.adam")
+    params0, _, _ = tr_k.init_state(seed=0)
+    order = np.random.default_rng(0).permutation(tr_k.train_users)
+    users, mask = tr_k.epoch_batches(None, order)
+    plans = tr_k.seed_plans(users)
+    steps = [s % users.shape[0] for s in range(PARITY_STEPS)]
+
+    def run(t):
+        params = {k: v.clone() for k, v in params0.items()}
+        opt = adam.adam_init(params)
+        losses = torch.stack([t.train_step(params, opt, users[s], mask[s],
+                                           seed_plan=plans[s])
+                              for s in steps])
+        torch.cuda.synchronize()
+        return params, losses
+
+    before = _counts_now()
+    pk, lk = run(tr_k)
+    _launched(before, {"segment_spmm": 8 * PARITY_STEPS,
+                       "gather_backward": CRED_GATHERS * PARITY_STEPS,
+                       "fused_adam": CRED_ADAM * PARITY_STEPS},
+              f"{tag}: the kernel path")
+    before = _counts_now()
+    pp, lp = run(tr_p)
+    _launched(before, {}, f"{tag}: the plain path")
+    loss_err, p_err, bit = _held(pk, lk, {"params": pp, "losses": lp},
+                                 f"{tag}: the kernel path against the "
+                                 f"plain path")
+    return {"loss_max_diff": loss_err, "param_max_diff": p_err,
+            "bit_identical": bit, "run": run,
+            "ref": {"params0": params0, "users": users, "mask": mask,
+                    "plans": plans, "steps": steps, "params": pk,
+                    "losses": lk}}
+
+
 def phase_cred_full_graph(dev, hg) -> dict:
     """Phase 12: full-graph mode at the same scale, counted, and 3 steps
     held against the plain path."""
@@ -1922,7 +1987,6 @@ def phase_cred_full_graph(dev, hg) -> dict:
     from importlib import import_module
     ct = import_module(f"{PKG}.train.cred_trainer")
     config = import_module(f"{PKG}.utils.config")
-    adam = import_module(f"{PKG}.ops.adam")
     cfg = config.CredConfig(trainer_mode="full_graph", epochs=CRED_EPOCHS)
     # ---- this path, counted (every kernel's count) ----
     reset_counts()
@@ -1946,34 +2010,11 @@ def phase_cred_full_graph(dev, hg) -> dict:
     # ---- 3 steps, kernel path vs plain path, from one state ----
     tr_p = ct.CredTrainer(hg, cfg, device=dev, backend="torch",
                           verbose=False)
-    params0, _, _ = tr.init_state(seed=0)
-    order = np.random.default_rng(0).permutation(tr.train_users)
-    users, mask = tr.epoch_batches(None, order)
-    plans = tr.seed_plans(users)
-    steps = [s % users.shape[0] for s in range(PARITY_STEPS)]
-
-    def run(t):
-        params = {k: v.clone() for k, v in params0.items()}
-        opt = adam.adam_init(params)
-        losses = torch.stack([t.train_step(params, opt, users[s], mask[s],
-                                           seed_plan=plans[s])
-                              for s in steps])
-        torch.cuda.synchronize()
-        return params, losses
-
-    before = _counts_now()
-    pk, lk = run(tr)
-    _launched(before, {"segment_spmm": 8 * PARITY_STEPS,
-                       "gather_backward": CRED_GATHERS * PARITY_STEPS,
-                       "fused_adam": CRED_ADAM * PARITY_STEPS},
-              "the Stage-A kernel path")
-    before = _counts_now()
-    pp, lp = run(tr_p)
-    _launched(before, {}, "the Stage-A plain path")
-    pk2, lk2 = run(tr)
-    loss_err, p_err, _ = _held(pk, lk, {"params": pp, "losses": lp},
-                               "the Stage-A kernel path against the plain "
-                               "path")
+    held = _cred_held_against_plain(tr, tr_p, "Stage A")
+    ref = held["ref"]
+    pk, lk = ref["params"], ref["losses"]
+    loss_err, p_err = held["loss_max_diff"], held["param_max_diff"]
+    pk2, lk2 = held["run"](tr)
     bit = torch.equal(lk, lk2) and all(torch.equal(pk[k], pk2[k]) for k in pk)
     if not bit:
         raise AssertionError("two Stage-A kernel-path runs are not "
@@ -1996,10 +2037,7 @@ def phase_cred_full_graph(dev, hg) -> dict:
     return {"launches_by_kernel": counts, "setup_s": t1 - t0,
             "fit_s": t2 - t1, "steps_per_epoch": nb, "history": res.history,
             "loss_max_diff": loss_err, "param_max_diff": p_err,
-            "bit_identical": bit, "_trainer": tr,
-            "_ref": {"params0": params0, "users": users, "mask": mask,
-                     "plans": plans, "steps": steps, "params": pk,
-                     "losses": lk}}
+            "bit_identical": bit, "_trainer": tr, "_ref": ref}
 
 
 def phase_two_stage(dev, tmp: Path, jsonl: Path, cred_dir: Path) -> dict:
@@ -4131,8 +4169,10 @@ def phase_parity(dev, tmp: Path) -> dict:
         text = pr.main(["report", "--dir", str(d), "--jax-dir",
                         str(root / "runs" / "parity"),
                         "--report-out", str(report)])
+    # the quality tables: the report ends with the committed Stage-A section
+    quality = text.split("\n## Stage-A parity")[0]
     rows = [[c.strip() for c in ln.strip().strip("|").split("|")]
-            for ln in text.splitlines() if ln.startswith("| ")
+            for ln in quality.splitlines() if ln.startswith("| ")
             and not ln.startswith("| Config")]
     want_rows = [(c, m + "@20") for c in pr.REPORT_CONFIGS
                  for m in ["recall", "ndcg"]
@@ -4275,6 +4315,279 @@ def phase_end_to_end(dev, tmp: Path) -> dict:
         f"epoch, Stage B {nb} steps): {' | '.join(lines[-2:])}; launches "
         f"{counts}")
     return {"launches_by_kernel": counts, "wall_s": wall, "lines": lines}
+
+
+# --------------------------------------------------------------------------
+# phase 20: the remaining protocol drivers
+# --------------------------------------------------------------------------
+
+DRIVER_EPOCHS = 2             # cred_parity's framework and downstream runs
+EQUIV_USERS = 4096            # val users of the overlap (of 100,000)
+EQUIV_BF16_MIN = 0.9          # bf16's mean Jaccard@20 after one epoch
+SCHEDULE_EPOCHS = 1           # schedule_compare's per_batch, of 12
+INGEST_PYTHON_LINES = 100_000  # the Python reader's prefix
+BREAKDOWN_BATCHES = 2         # eval_breakdown's batches of 512 (of 6)
+
+
+def _cred_full_graph_counts(nb: int, epochs: int) -> dict:
+    """A full-graph Stage-A fit's launches (phase 12's count)."""
+    return {"segment_spmm": 8 * nb * epochs + 2 * epochs + 2,
+            "gather_backward": CRED_GATHERS * nb * epochs,
+            "fused_adam": CRED_ADAM * nb * epochs}
+
+
+def phase_cred_parity(dev, tmp: Path) -> dict:
+    """Phase 20 (a): ``scripts/cred_parity_run`` counted as the
+    ``cred_parity`` path: ``build`` at its size (3,000 users), ``framework``
+    in both modes for DRIVER_EPOCHS epochs, a ``downstream`` pair
+    (cu_message and cred_eq322 on the oracle's scores) for DRIVER_EPOCHS
+    epochs, then ``report`` against the committed oracle vector: a row for
+    the oracle and each mode, a row for each downstream run, a verdict.
+    After the path is read, the shapes it gives the kernels are held
+    against the plain path: the full-graph ``CredTrainer`` on the planted
+    heterograph (``_cred_held_against_plain``) and both Stage-B
+    configurations on the md5-split graph with the oracle's scores as
+    credibility (``_held_against_plain``)."""
+    import io
+    from importlib import import_module
+    cp = import_module(f"{PKG}.scripts.cred_parity_run")
+    config = import_module(f"{PKG}.utils.config")
+    root = Path(__file__).resolve().parent
+    oracle = root / "runs" / "torch_h100" / "cred_parity" / "cred_oracle.npy"
+    d = tmp / "cred_parity"
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        built = cp.main(["build", "--dir", str(d)])
+        runs = {m: cp.main(["framework", "--mode", m, "--dir", str(d),
+                            "--epochs", str(DRIVER_EPOCHS), "--device",
+                            str(dev)]) for m in cp.MODES}
+        ds = cp.main(["downstream", "--dir", str(d), "--oracle", str(oracle),
+                      "--sources", "oracle", "--epochs", str(DRIVER_EPOCHS),
+                      "--device", str(dev)])
+        report = cp.main(["report", "--dir", str(d), "--oracle",
+                          str(oracle), "--jax-cpu", str(
+                              root / cp.DIR / "jax_cpu")])
+    wall = time.perf_counter() - t
+    labeled = int((np.load(d / "hg.npz", allow_pickle=True)["user_y"] >= 0)
+                  .sum())
+    nb_a = -(-int(0.8 * labeled) // cp.BATCH_A)
+    z = np.load(d / "graph.npz")
+    n_b = int(np.unique(z["train_edges"][0]).size)
+    want = _plus(_cred_full_graph_counts(nb_a, DRIVER_EPOCHS),
+                 {"fused_adam": nb_a * DRIVER_EPOCHS})
+    for cname in cp.STAGE_B:
+        cfg = config.RecConfig(table_layout="split", **cp.STAGE_B[cname])
+        want = _plus(want, _per_batch_counts(
+            cfg, -(-n_b // cfg.batch_size), DRIVER_EPOCHS, 1))
+    counts = read_counts(want, "cred_parity path")
+    rows = [ln.split("|")[1].strip() for ln in report.splitlines()
+            if ln.startswith("| ")]
+    want_rows = ["oracle", *cp.MODES] + [f"{c}/oracle" for c in cp.STAGE_B]
+    if built["users"] != 3000 or sorted(ds) != sorted(want_rows[3:]) \
+            or [r for r in rows if r in want_rows] != want_rows \
+            or "**Verdict: " not in report:
+        raise AssertionError(f"cred_parity report rows {rows}, downstream "
+                             f"{sorted(ds)}")
+    for m, r in runs.items():
+        if not np.isfinite(r["loss"]).all() or len(r["loss"]) != \
+                DRIVER_EPOCHS:
+            raise AssertionError(f"cred_parity {m}: losses {r['loss']}")
+    # the full-graph trainer on the planted heterograph: one inference
+    # (2 SpMM), then the steps
+    hg = import_module(f"{PKG}.graph.hetero").HeteroGraph.load_npz(
+        d / "hg.npz")
+    cfg_a = config.CredConfig(trainer_mode="full_graph", batch_size=cp.BATCH_A)
+    ct = import_module(f"{PKG}.train.cred_trainer")
+    tr_k = ct.CredTrainer(hg, cfg_a, device=dev, verbose=False)
+    tr_p = ct.CredTrainer(hg, cfg_a, device=dev, backend="torch",
+                          verbose=False)
+    params0, _, _ = tr_k.init_state(seed=0)
+    before = _counts_now()
+    s_k = tr_k.infer(params0)
+    _launched(before, {"segment_spmm": 2}, "cred_parity full_graph: kernel "
+              "inference")
+    before = _counts_now()
+    s_p = tr_p.infer(params0)
+    _launched(before, {}, "cred_parity full_graph: plain inference")
+    if not _close(s_k, s_p):
+        raise AssertionError("cred_parity full_graph: inferred scores differ "
+                             "from the plain path's")
+    fg = _cred_held_against_plain(tr_k, tr_p, "cred_parity full_graph")
+    held = {"full_graph": {
+        "table_max_diff": float((s_k - s_p).abs().max()),
+        "table_rows": (int(s_k.shape[0]),),
+        **{k: fg[k] for k in ("loss_max_diff", "param_max_diff",
+                              "bit_identical")}}}
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    graph = cp._graph(d / "graph.npz")
+    cred = np.load(oracle).astype(np.float32)
+    for cname, cdict in cp.STAGE_B.items():
+        cfg = config.RecConfig(name=f"ds_{cname}_oracle",
+                               table_layout="split", **cdict)
+        held[cname] = _held_against_plain(
+            trainer_mod.RecTrainer(cfg, graph, cred=cred, device=dev,
+                                   verbose=False),
+            trainer_mod.RecTrainer(cfg.replace(spmm_backend="torch"), graph,
+                                   cred=cred, device=dev, verbose=False),
+            f"cred_parity {cname}")
+    log(f"[phase 20a] cred_parity_run on the planted heterograph "
+        f"({built['users']:,} users, {built['edges']:,} edges; {wall:.1f}s): "
+        + "; ".join(f"{m} {DRIVER_EPOCHS} epochs ({nb_a} steps), holdout AUC "
+                    f"{r['final_holdout_auc']:.4f}, {r['wall_seconds']:.1f}s"
+                    for m, r in runs.items())
+        + "; downstream " + ", ".join(f"{k} R@20 {v['recall']:.4f}"
+                                      for k, v in ds.items())
+        + f"; report: {report.strip().splitlines()[-1][:120]}; launches "
+        f"{counts}; held against the plain path: " + _held_line(held))
+    return {"launches_by_kernel": counts, "wall_s": wall, "framework": runs,
+            "downstream": ds, "held_against_plain": held}
+
+
+def phase_eval_equiv(dev, graph, tmp: Path, params: dict) -> dict:
+    """Phase 20 (c): ``scripts/eval_equiv_r4 overlap`` on phase 18's planted
+    graph, counted as the ``eval_equiv`` path (one propagate), in all three
+    modes on EQUIV_USERS val users, on ``params``: phase 20 (b)'s kernel
+    trainer after one epoch (``train`` runs at full length in
+    ``scripts/protocol.py``; here its 10M trainer would be one more
+    set-up).  Approx equal to exact (the port ranks it exactly), bf16 mean
+    Jaccard@20 >= EQUIV_BF16_MIN (a bound on gross errors: after one epoch
+    near-tied scores reorder more than on the full-length record, which is
+    held to 0.99)."""
+    import io
+    from importlib import import_module
+    ee = import_module(f"{PKG}.scripts.eval_equiv_r4")
+    checkpoint = import_module(f"{PKG}.train.checkpoint")
+    d = tmp / "eval_equiv_r4"
+    checkpoint.save_params_npz(d / "params_exact.npz", params)
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ov = ee.main(["overlap", "--max-users", str(EQUIV_USERS), "--dir",
+                      str(d), "--device", str(dev)], graph=graph)
+    t_overlap = time.perf_counter() - t
+    (d / "params_exact.npz").unlink()
+    counts = read_counts({"segment_spmm": _applies(ee.make_cfg("exact"))},
+                         "eval_equiv path")
+    a, b = ov["jaccard_approx_vs_exact"], ov["jaccard_bf16_vs_exact"]
+    if ov["n_users"] != EQUIV_USERS or a["frac_identical"] != 1.0 \
+            or not EQUIV_BF16_MIN <= b["mean"] <= 1.0:
+        raise AssertionError(f"eval_equiv overlap {ov}")
+    log(f"[phase 20c] eval_equiv_r4 overlap on {ov['n_users']:,} val users "
+        f"of the planted graph ({t_overlap:.1f}s): approx identical on "
+        f"{a['frac_identical']:.1%}, bf16 mean Jaccard@20 {b['mean']:.4f} "
+        f"(min {b['min']:.4f}), bf16 tables scored in fp32 "
+        f"{ov['jaccard_' + ee.BF16_FP32_SCORES + '_vs_exact']['mean']:.4f}; "
+        f"launches {counts}")
+    return {"launches_by_kernel": counts, "overlap_s": t_overlap,
+            "overlap": ov}
+
+
+def phase_schedule_compare(dev, graph, tmp: Path) -> dict:
+    """Phase 20 (b): ``scripts/schedule_compare`` with ``per_batch`` for
+    SCHEDULE_EPOCHS epoch on phase 18's planted graph, counted as the
+    ``schedule_compare`` path (a step: the K=4 propagate forward and
+    backward, 2(K+1)+2 gathers, 1 Adam; a propagate each evaluation), the
+    JAX record's keys; then one propagate and PARITY_STEPS ``per_batch``
+    steps held against ``spmm_backend="torch"`` on the card; returns the
+    kernel trainer's parameters after one epoch as ``_params``."""
+    import io
+    from importlib import import_module
+    sc = import_module(f"{PKG}.scripts.schedule_compare")
+    presets = import_module(f"{PKG}.configs.presets")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    root = Path(__file__).resolve().parent
+    cfg = presets.get_preset("scaled_10m", propagation_schedule="per_batch",
+                             epochs=SCHEDULE_EPOCHS, seed=0)
+    n_train = int((graph.user_csr("train").degrees() > 0).sum())
+    nb = -(-n_train // cfg.batch_size)
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = sc.main([str(SCHEDULE_EPOCHS), "--schedules", "per_batch",
+                       "--out", str(tmp / "schedule_compare.json"),
+                       "--device", str(dev)], graph=graph)
+    wall = time.perf_counter() - t
+    counts = read_counts(_per_batch_counts(cfg, nb, SCHEDULE_EPOCHS,
+                                           SCHEDULE_EPOCHS + 1),
+                         "schedule_compare path")
+    jax = json.loads((root / "runs" / "schedule_compare.json").read_text())
+    written = json.loads((tmp / "schedule_compare.json").read_text())
+    if set(written) != set(jax) - {"per_epoch"} | {"card"} \
+            or _keys(written["per_batch"]) != _keys(jax["per_batch"]):
+        raise AssertionError(f"schedule_compare keys {_keys(written)}")
+    _finite_metrics(out["per_batch"]["test"], "schedule_compare per_batch")
+    tr_k = trainer_mod.RecTrainer(cfg, graph, device=dev, verbose=False)
+    held = _held_against_plain(
+        tr_k, trainer_mod.RecTrainer(cfg.replace(spmm_backend="torch"),
+                                     graph, device=dev, verbose=False),
+        "schedule_compare per_batch")
+    # phase 20 (c)'s parameters: one per_batch epoch of the kernel trainer
+    params, opt, gen = tr_k.init_state()
+    tr_k.run_epoch(params, opt, tr_k.draw_epoch(gen))
+    r = out["per_batch"]
+    log(f"[phase 20b] schedule_compare per_batch {SCHEDULE_EPOCHS} epoch on "
+        f"the planted graph ({nb} steps): {wall:.1f}s (fit "
+        f"{r['seconds']:.1f}s, epoch {r['epoch_seconds_median']:.2f}s), test "
+        f"R@20 {r['test'][20]['recall']:.6f}; launches {counts}; held "
+        f"against the plain path: " + _held_line({"per_batch": held}))
+    return {"launches_by_kernel": counts, "wall_s": wall, "record": out,
+            "held_against_plain": held, "_params": params}
+
+
+def phase_ingest_bench(dev, tmp: Path, jsonl: Path) -> dict:
+    """Phase 20 (d): ``scripts/ingest_bench`` on phase 11's JSONL (its
+    Python reader on an INGEST_PYTHON_LINES prefix): every line kept, the
+    JAX record's keys with the host's CPU and the card, no kernel
+    launched."""
+    import io
+    from importlib import import_module
+    ib = import_module(f"{PKG}.scripts.ingest_bench")
+    root = Path(__file__).resolve().parent
+    lines = CRED_REVIEWS["lines"]
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = ib.main(["--path", str(jsonl), "--lines", str(lines),
+                       "--python-lines", str(INGEST_PYTHON_LINES), "--out",
+                       str(tmp / "ingest_bench.json"), "--device", str(dev)])
+    read_counts({}, "ingest_bench")
+    jax = json.loads((root / "runs" / "ingest_bench.json").read_text())
+    if rec["rows_kept"] != lines or not jsonl.exists() \
+            or set(rec) != set(jax) | {"host_cpu", "card"}:
+        raise AssertionError(f"ingest_bench record {rec}")
+    log(f"[phase 20d] ingest_bench on phase 11's {lines:,} lines: native "
+        f"{rec['native_s']:.2f}s ({rec['native_mlines_per_s']:.3f} M "
+        f"lines/s), Python {rec['python_prefix_s']:.2f}s on "
+        f"{rec['python_prefix_lines']:,} lines (projected "
+        f"{rec['python_projected_s']:.1f}s); host {rec['host_cpu']}")
+    return rec
+
+
+def phase_eval_breakdown(dev, graph, tmp: Path) -> dict:
+    """Phase 20 (e): ``probes/eval_breakdown`` for BREAKDOWN_BATCHES
+    batches on phase 18's planted graph: every part timed, the chunked
+    top-k sets equal to the full-width ones, no kernel launched."""
+    import io
+    from importlib import import_module
+    eb = import_module(f"{PKG}.probes.eval_breakdown")
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = eb.main(["--batches", str(BREAKDOWN_BATCHES), "--out",
+                       str(tmp / "eval_breakdown.json"), "--device",
+                       str(dev)], graph=graph)
+    read_counts({}, "eval_breakdown")
+    ms = rec["ms_per_batch"]
+    if set(ms) != set(eb.PARTS) or min(rec["sets_agree_min"].values()) < 1.0 \
+            or not all(np.isfinite(v) and v >= 0 for v in ms.values()):
+        raise AssertionError(f"eval_breakdown {rec['ms_per_batch']} "
+                             f"{rec['sets_agree_min']}")
+    log(f"[phase 20e] eval_breakdown, {BREAKDOWN_BATCHES} batches of "
+        f"{rec['batch']} over {graph.num_items:,} items (ms a batch, "
+        f"{rec['clock']}): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         ms.items())
+        + f"; sets agree {rec['sets_agree_min']}; bf16 Jaccard vs fp32 "
+        f"{rec['bf16_jaccard_vs_fp32_mean']:.4f}")
+    return rec
 
 
 def _rounded(obj):
@@ -4531,7 +4844,6 @@ def run(dev, out_path=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         ns_two = phase_northstar_two_stage(dev, ns_graph, Path(tmp))
-    del ns_graph
     log(f"[phase 18] done in {time.perf_counter() - t18:.1f}s")
 
     # ---- phase 19: the reference protocol's entry points ----
@@ -4545,8 +4857,24 @@ def run(dev, out_path=None) -> int:
                     "two_stage_demo": phase_two_stage_demo(
                         dev, tmp, reviews_dir / "reviews.jsonl"),
                     "end_to_end": phase_end_to_end(dev, tmp)}
-    reviews_tmp.cleanup()
     log(f"[phase 19] done in {time.perf_counter() - t19:.1f}s")
+
+    # ---- phase 20: the remaining protocol drivers, on phase 18's graph ----
+    t20 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        drivers = {"cred_parity": phase_cred_parity(dev, tmp),
+                   "schedule_compare": phase_schedule_compare(dev, ns_graph,
+                                                              tmp)}
+        drivers["eval_equiv"] = phase_eval_equiv(
+            dev, ns_graph, tmp, drivers["schedule_compare"].pop("_params"))
+        ingest_rec = phase_ingest_bench(dev, tmp,
+                                        reviews_dir / "reviews.jsonl")
+        breakdown = phase_eval_breakdown(dev, ns_graph, tmp)
+    reviews_tmp.cleanup()
+    del ns_graph
+    log(f"[phase 20] done in {time.perf_counter() - t20:.1f}s")
 
     dirs = res["directions"]
     pair = times["adam_pair"]
@@ -4570,12 +4898,13 @@ def run(dev, out_path=None) -> int:
              "cred_full_graph_chunked": ch_cred["launches_by_kernel"],
              "northstar": northstar["launches_by_kernel"],
              "northstar_two_stage": ns_two["launches_by_kernel"],
-             **{k: v["launches_by_kernel"] for k, v in protocol.items()}}
+             **{k: v["launches_by_kernel"] for k, v in protocol.items()},
+             **{k: v["launches_by_kernel"] for k, v in drivers.items()}}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
                   "serving_mesh", "training_mesh", "cred_full_graph_mesh",
                   "serving_chunked", "training_chunked",
                   "cred_full_graph_chunked", "northstar",
-                  "northstar_two_stage", *protocol)
+                  "northstar_two_stage", *protocol, *drivers)
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",
@@ -4670,6 +4999,8 @@ def run(dev, out_path=None) -> int:
              "northstar": {"bench": bench_line, "scaled_10m": northstar,
                            "two_stage": ns_two},
              "protocol": protocol,
+             "drivers": {**drivers, "ingest_bench": ingest_rec,
+                         "eval_breakdown": breakdown},
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},
