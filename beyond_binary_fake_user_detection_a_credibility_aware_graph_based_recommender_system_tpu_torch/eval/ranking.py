@@ -14,7 +14,8 @@ Protocol parity:
   * full mode: all-item scores with the user's train items masked to -1e9
     (lightgcn.py:477-490), top-K ranking with the exact ``torch.topk``
     (``topk="approx"`` ranks exactly too: the TPU's approx_max_k has no
-    counterpart here).
+    counterpart here); ``score_dtype="bf16"`` scores bf16 tables with fp32
+    sums, as the TPU kept them, and ranks in fp32.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ..ops.sampling import (DeviceCSR, row_contains, sample_candidate_set,
 from .metrics import (cred_groups, item_popularity, novelty_stats,
                       sampled_rank_metrics, topk_metrics)
 from .retrieval import (exact_fp32_matmul, exclusion_rows_for_users,
-                        mask_excluded, topk_for_users)
+                        mask_excluded, score_product, topk_for_users)
 
 _METRICS = ("precision", "recall", "ndcg")
 
@@ -169,11 +170,10 @@ def _full_metrics_from_topk(topk_items, users, test_csr: DeviceCSR, item_pop,
 def _full_batch(user_emb, item_emb, users, excl_rows, test_csr: DeviceCSR,
                 item_pop, Ks: tuple, extended: bool, total_train: int,
                 num_items: int, score_dtype: str = "fp32"):
-    """``excl_rows``: (B, Pb) per-batch train-item rows (pad = num_items)."""
-    if score_dtype == "bf16":
-        user_emb = user_emb.to(torch.bfloat16)
-        item_emb = item_emb.to(torch.bfloat16)
-    scores = user_emb[users] @ item_emb.T                       # (B, I)
+    """``excl_rows``: (B, Pb) per-batch train-item rows (pad = num_items).
+    ``score_dtype="bf16"``: bf16 tables, scores summed, masked and ranked
+    in fp32 (``retrieval.score_product``)."""
+    scores = score_product(user_emb[users], item_emb, score_dtype)  # (B, I)
     scores = mask_excluded(scores, excl_rows, -1e9)
     _, topk_items = torch.topk(scores, max(Ks), dim=1)
     return _full_metrics_from_topk(topk_items, users, test_csr, item_pop,

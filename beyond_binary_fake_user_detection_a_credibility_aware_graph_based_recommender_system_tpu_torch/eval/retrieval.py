@@ -23,6 +23,31 @@ def exact_fp32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+SCORE_DTYPES = ("fp32", "bf16")
+
+
+def score_product(user_rows: torch.Tensor, item_emb: torch.Tensor,
+                  score_dtype: str = "fp32") -> torch.Tensor:
+    """(B, I) fp32 dot-product scores of ``user_rows`` against every item.
+
+    ``score_dtype="bf16"`` rounds both tables to bf16 and sums their
+    products in fp32, rounding no score to bf16: the product the JAX
+    package's bf16 evaluation kept on the TPU (a bf16 dot with fp32
+    accumulation, ``preferred_element_type=float32``).  On the card it is
+    one bf16 GEMM with an fp32 output; elsewhere the bf16 tables upcast to
+    fp32 (a product of two bf16 values is exact in fp32, so the two differ
+    by summation order only)."""
+    if score_dtype == "fp32":
+        return user_rows @ item_emb.T
+    if score_dtype != "bf16":
+        raise ValueError(f"unknown score dtype {score_dtype!r}")
+    u = user_rows.to(torch.bfloat16)
+    items = item_emb.to(torch.bfloat16)
+    if u.is_cuda:
+        return torch.mm(u, items.T, out_dtype=torch.float32)
+    return u.float() @ items.float().T
+
+
 def build_exclusion_rows(graph: BipartiteGraph, split: str = "train"
                          ) -> np.ndarray:
     """(U, Pmax) per-user seen-item lists padded with num_items.

@@ -10,8 +10,10 @@ exact fp32 top-k.  Communication is O(B*k*P) instead of O(B*I).
 
 ``method="approx"`` ranks exactly (``torch.topk``; the TPU's
 ``approx_max_k`` has no counterpart here, as on one device).
-``score_dtype="bf16"`` scores and ranks each block in bf16; the merge
-compares in fp32.  Every rank of the group returns the same result.
+``score_dtype="bf16"`` scores each block on bf16 tables with fp32 sums
+(``eval/retrieval.score_product``: the product the TPU kept) and ranks and
+merges in fp32; JAX's mesh path rounds each block score to bf16.  Every
+rank of the group returns the same result.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..eval.retrieval import SCORE_DTYPES, score_product
 from .mesh import model_axis, pad_rows, padded_row_count, row_shard
 from .sharded_spmm import _all_gather_into, _need_group
 
@@ -48,11 +51,12 @@ class ShardedTopK:
 
         ``exclude``: optional (B, Pmax) per-user item ids to exclude (pad
         with num_items); ``method``: "exact" | "approx" (both exact here);
-        ``score_dtype``: "fp32" | "bf16" (block matmul + local ranking).
+        ``score_dtype``: "fp32" | "bf16" (the block's tables; scores are
+        fp32 either way).
         """
         if method not in ("exact", "approx"):
             raise ValueError(f"unknown top-k method {method!r}")
-        if score_dtype not in ("fp32", "bf16"):
+        if score_dtype not in SCORE_DTYPES:
             raise ValueError(f"unknown score dtype {score_dtype!r}")
         if item_emb_padded.shape[0] != self.padded_items:
             raise ValueError(f"item table has {item_emb_padded.shape[0]} "
@@ -62,9 +66,7 @@ class ShardedTopK:
         base = self.axis.coord * rows_per
         u = user_emb_batch
         items = row_shard(item_emb_padded, self.axis)
-        if score_dtype == "bf16":
-            u, items = u.to(torch.bfloat16), items.to(torch.bfloat16)
-        scores = u @ items.T                                   # (B, rows_per)
+        scores = score_product(u, items, score_dtype)          # (B, rows_per)
         B = scores.shape[0]
         gids = base + torch.arange(rows_per, device=scores.device)
         real = min(max(self.num_items - base, 0), rows_per)
@@ -79,7 +81,6 @@ class ShardedTopK:
             scores[rows.expand_as(loc)[keep], loc[keep]] = float("-inf")
         k_local = min(k, rows_per)
         loc_v, loc_i = torch.topk(scores, k_local, dim=1)
-        loc_v = loc_v.float()
         # pad or excluded survivors (-inf) become the out-of-range sentinel
         # so they never count downstream
         loc_g = torch.where(torch.isfinite(loc_v), gids[loc_i],

@@ -14,8 +14,10 @@ evaluation runs them:
   topk_full        full-width ``torch.topk`` (the shipped ranking)
   topk_chunked     a top-k in each of ``--chunks`` column chunks, then the
                    merge of their C*K candidates
-  scores_bf16      the product on bf16 tables, and its exclusion
-  topk_bf16        full-width top-k of the bf16 scores, and
+  scores_bf16      the product on bf16 tables with fp32 sums, as the bf16
+                   evaluation scores them (``eval/retrieval.score_product``),
+                   and its exclusion
+  topk_bf16        full-width top-k of those fp32 scores, and
   topk_bf16_chunked  their chunked top-k
   full_batch       the evaluation's own ``eval/ranking._full_batch`` (scores,
                    exclusion, top-k, metrics), fp32 and bf16
@@ -23,8 +25,7 @@ evaluation runs them:
 each with CUDA events around it (the host clock on the CPU), the first
 batch a warm-up.  Every variant's top-K sets are checked against the
 full-width top-K of the same scores (ties aside: a differing item must tie
-the K-th score); the bf16 sets' Jaccard against fp32's is reported, and
-that of bf16 tables scored in fp32 (the tables' rounding alone).  It
+the K-th score); the bf16 sets' Jaccard against fp32's is reported.  It
 writes ``--out`` (default ``runs/torch_h100/eval_breakdown.json``) and
 changes nothing on the main path.
 
@@ -118,7 +119,7 @@ def run(graph, dev, batches: int = 6, batch: int = 512, dim: int = 128,
     """The probe on ``graph``'s val users; returns the record."""
     from ..eval.ranking import _full_batch
     from ..eval.retrieval import (exact_fp32_matmul, exclusion_rows_for_users,
-                                  mask_excluded)
+                                  mask_excluded, score_product)
     from ..ops.sampling import DeviceCSR
     exact_fp32_matmul()
     I = graph.num_items
@@ -129,7 +130,6 @@ def run(graph, dev, batches: int = 6, batch: int = 512, dim: int = 128,
     user_emb = 0.1 * torch.randn(graph.num_users, dim, generator=gen,
                                  device=dev)
     item_emb = 0.1 * torch.randn(I, dim, generator=gen, device=dev)
-    ue16, ie16 = user_emb.to(torch.bfloat16), item_emb.to(torch.bfloat16)
     val_csr = DeviceCSR.from_host(graph.user_csr("val"), I, dev)
     print(f"[evalbd] eval users={users_all.size:,} -> {n_eval_batches:,} "
           f"batches of {batch}; I={I:,} D={dim} K={K} chunks={chunks}; "
@@ -158,7 +158,8 @@ def run(graph, dev, batches: int = 6, batch: int = 512, dim: int = 128,
         clock.mark("topk_full")
         _, top_chunk = chunked_topk(scores, K, chunks)
         clock.mark("topk_chunked")
-        s16 = mask_excluded(ue16[bu] @ ie16.T, excl, -1e9)
+        s16 = mask_excluded(score_product(user_emb[bu], item_emb, "bf16"),
+                            excl, -1e9)
         clock.mark("scores_bf16")
         _, top16 = torch.topk(s16, K, dim=1)
         clock.mark("topk_bf16")
@@ -176,12 +177,7 @@ def run(graph, dev, batches: int = 6, batch: int = 512, dim: int = 128,
             "topk_chunked_vs_full": sets_agree(scores, top_full, top_chunk),
             "topk_bf16_chunked_vs_bf16_full": sets_agree(s16, top16,
                                                          top16_chunk),
-            "bf16_full_jaccard_vs_fp32": jaccard(top_full, top16),
-            # bf16 tables, fp32 scores: the rounding of the tables alone
-            "bf16_tables_fp32_scores_jaccard_vs_fp32": jaccard(
-                top_full, torch.topk(mask_excluded(
-                    ue16[bu].float() @ ie16.float().T, excl, -1e9), K,
-                    dim=1)[1])})
+            "bf16_full_jaccard_vs_fp32": jaccard(top_full, top16)})
     timed = per_batch[1:] or per_batch
     mean = {p: float(np.mean([m[p] for m in timed])) for p in PARTS}
     shipped = ("host_exclusion", "h2d", "full_batch")

@@ -48,9 +48,6 @@ GRAPH = dict(num_users=500_000, num_items=1_000_000, edges_per_user=20.0)
 K = 20
 R20_TOL = 0.002        # an arm's TEST R@20 against the JAX record's
 JACCARD_MIN = 0.99     # the bf16 arm's mean Jaccard@20 against exact
-# overlap's extra list: bf16 tables with fp32 scores (no rounding of the
-# score to bf16), beside the three modes
-BF16_FP32_SCORES = "bf16_tables_fp32_scores"
 
 
 def build_graph():
@@ -143,14 +140,8 @@ def overlap_lists(graph, params, users, device, batch=512) -> dict:
                                   device, cfg.membership)
     with torch.no_grad():
         user_emb, item_emb = model.propagate(params)
-        lists = {m: _topk_lists(user_emb, item_emb, graph, val_csr, users, m,
-                                batch=batch) for m in MODES}
-        # bf16 tables, scores summed and kept in fp32: the bf16 mode without
-        # its scores' rounding to bf16
-        lists[BF16_FP32_SCORES] = _topk_lists(
-            user_emb.bfloat16().float(), item_emb.bfloat16().float(), graph,
-            val_csr, users, "exact", batch=batch)
-        return lists
+        return {m: _topk_lists(user_emb, item_emb, graph, val_csr, users, m,
+                               batch=batch) for m in MODES}
 
 
 def cmd_overlap(args, graph=None) -> dict:
@@ -170,7 +161,7 @@ def cmd_overlap(args, graph=None) -> dict:
     t0 = time.perf_counter()
     lists = overlap_lists(graph, params, users, dev)
     res = {"n_users": int(users.size), "K": K}
-    for m in ("approx", "bf16", BF16_FP32_SCORES):
+    for m in ("approx", "bf16"):
         res[f"jaccard_{m}_vs_exact"] = jaccard_stats(lists["exact"],
                                                      lists[m])
         print(m, res[f"jaccard_{m}_vs_exact"], flush=True)
@@ -229,9 +220,7 @@ def report_lines(d: Path, jax_dir: Path) -> list:
     if ov:
         lines += ["", f"Per-user top-20 SET overlap vs exact (same params, "
                   f"{ov['n_users']:,} val users; JAX's in brackets):", ""]
-        for m in ("approx", "bf16", BF16_FP32_SCORES):
-            if f"jaccard_{m}_vs_exact" not in ov:
-                continue
+        for m in ("approx", "bf16"):
             o = ov[f"jaccard_{m}_vs_exact"]
             jo = (jov or {}).get(f"jaccard_{m}_vs_exact")
             verdict = "" if m != "bf16" else (

@@ -46,6 +46,18 @@ Parts (run in the order given):
               ``<out>/sharding_report.json``;
   eval_breakdown  ``probes/eval_breakdown`` on the same graph:
               ``<out>/eval_breakdown.json``;
+  scaling_terms  ``probes/scaling_terms`` on the planted 10M graph at the
+              preset's precision, then with ``--spmm-precision fp32`` and
+              ``bf16``: ``<out>/scaling_terms.json``,
+              ``scaling_terms_fp32.json``, ``scaling_terms_bf16.json``
+              (the preset's messages are fp32: its trainer serves both);
+  sampling_costs  ``probes/sampling_costs`` at its defaults:
+              ``<out>/sampling_costs.json``;
+  scaling_projection  ``scripts/scaling_projection`` on
+              ``<out>/scaling_terms.json`` with its P=4 check against
+              ``<out>/sharding_report.json``:
+              ``<out>/scaling_projection.json`` (a projection: host
+              planning and stated bandwidths);
   summary     reads those records and the JAX package's (``--jax-runs``)
               and writes ``<out>/SUMMARY.md``: each run's quality and
               late-epoch loss beside the JAX record's, with its tolerance
@@ -57,7 +69,8 @@ with its wall seconds and TEST Recall@20.
 
     python -m <package>.scripts.protocol reference precision parity \\
         two_stage seeds northstar seeds_parity cred_parity cred_seeds \\
-        eval_equiv schedule ingest sharding eval_breakdown summary \\
+        eval_equiv schedule ingest sharding eval_breakdown scaling_terms \\
+        sampling_costs scaling_projection summary \\
         --out runs/torch_h100 [--device cuda|cpu]
 """
 
@@ -77,9 +90,9 @@ import numpy as np
 import torch
 
 from . import (cred_parity_run, eval_equiv_r4, ingest_bench, parity_run,
-               precision_compare, reference_regression, schedule_compare,
-               sharding_report, two_stage_demo)
-from ..probes import eval_breakdown
+               precision_compare, reference_regression, scaling_projection,
+               schedule_compare, sharding_report, two_stage_demo)
+from ..probes import eval_breakdown, sampling_costs, scaling_terms
 from ..utils.device import card_name, resolve_device
 
 REFERENCE_PRESETS = ("vanilla", "cu_message", "pop_neg", "degree_aware",
@@ -99,14 +112,17 @@ NORTHSTAR_EPOCHS = 12
 # a run's loss row: the mean loss of its last LOSS_WINDOW epochs (all of
 # them when it has fewer)
 LOSS_WINDOW = 50
-# F7's seed spread on the parity harness's graph (both sides' own seeds)
+# F7's seed spread on the parity harness's graph (both sides' own seeds);
+# degree_aware's at eight seeds a side (F10)
 SPREAD_PRESETS = ("vanilla", "degree_aware")
 SPREAD_SEEDS = (42, 43, 44, 45)
+SPREAD_SEEDS_BY_PRESET = {"degree_aware": tuple(range(42, 50))}
 SPREAD_EPOCHS = 400
 # the committed Stage-A oracle vector and the JAX framework's CPU vectors
 CRED_ORACLE = "runs/torch_h100/cred_parity/cred_oracle.npy"
 CRED_JAX_CPU = "runs/torch_h100/cred_parity/jax_cpu"
-CRED_SEEDS = (43, 44, 45)      # Stage A's seed spread (the oracle's is 42)
+# Stage A's seed spread (the oracle's and the main run's seed is 42; F9)
+CRED_SEEDS = tuple(range(43, 54))
 # the JAX package's side of the seed spread: its scripts/parity_run.py
 # framework --verbose on a CPU, one log a preset and seed
 SPREAD_JAX = "runs/torch_h100/seeds/jax_cpu"
@@ -119,7 +135,7 @@ INGEST_LINES = 10_000_000      # the ingest bench's stream (the JAX record's)
 PARTS = ("reference", "precision", "parity", "two_stage", "seeds",
          "northstar", "seeds_parity", "cred_parity", "cred_seeds",
          "eval_equiv", "schedule", "ingest", "sharding", "eval_breakdown",
-         "summary")
+         "scaling_terms", "sampling_costs", "scaling_projection", "summary")
 # the JAX record of the north star's quality: scaled_10m on the same
 # synthetic graph, 12 epochs, full-catalogue TEST
 NORTHSTAR_JAX = "scaled_10m_r3_metrics.jsonl"
@@ -240,7 +256,7 @@ def part_seeds_parity(out: Path, dev) -> None:
          ["build", "--out", str(graph)], dev)
     side = d / ("port_h100" if dev.type == "cuda" else f"port_{dev.type}")
     for p in SPREAD_PRESETS:
-        for seed in SPREAD_SEEDS:
+        for seed in spread_seeds(p):
             _run(out, f"seeds_parity_{p}_s{seed}", parity_run.main,
                  ["framework", "--graph", str(graph), "--config", p,
                   "--seed", str(seed), "--epochs", str(SPREAD_EPOCHS),
@@ -341,6 +357,39 @@ def part_eval_breakdown(out: Path, dev) -> None:
          lambda argv: eval_breakdown.main(argv, graph=g),
          ["--out", str(out / "eval_breakdown.json"), "--device", str(dev)],
          dev)
+
+
+def part_scaling_terms(out: Path, dev) -> None:
+    from ..bench import northstar_trainer
+    g = _graph("planted")
+    tr = northstar_trainer(g, dev)
+    for prec in scaling_terms.PRECISIONS:
+        name = ("scaling_terms.json" if prec == "preset"
+                else f"scaling_terms_{prec}.json")
+        # the preset's own messages share its trainer; another precision
+        # builds one
+        kw = ({"trainer": tr} if prec in ("preset", tr.cfg.spmm_precision)
+              else {"graph": g})
+        _run(out, f"scaling_terms_{prec}",
+             lambda argv, kw=kw: scaling_terms.main(argv, **kw),
+             ["--spmm-precision", prec, "--out", str(out / name),
+              "--device", str(dev)], dev)
+
+
+def part_sampling_costs(out: Path, dev) -> None:
+    _run(out, "sampling_costs", sampling_costs.main,
+         ["--out", str(out / "sampling_costs.json"), "--device", str(dev)],
+         dev)
+
+
+def part_scaling_projection(out: Path, dev) -> None:
+    g, large = _graph("planted"), _graph("large")
+    _run(out, "scaling_projection",
+         lambda argv: scaling_projection.main(argv, graph=g,
+                                              report_graph=large),
+         ["--terms", str(out / "scaling_terms.json"), "--sharding-report",
+          str(out / "sharding_report.json"), "--out",
+          str(out / "scaling_projection.json"), "--device", str(dev)], dev)
 
 
 def _final(path: Path):
@@ -619,18 +668,24 @@ def log_mean_loss(path: Path):
     return statistics.fmean(losses[-LOSS_WINDOW:])
 
 
+def spread_seeds(preset: str) -> tuple:
+    """The seeds of a preset's spread on the parity graph."""
+    return SPREAD_SEEDS_BY_PRESET.get(preset, SPREAD_SEEDS)
+
+
 def spread_lines(out: Path, jax_dir: Path) -> list:
     """F7's seed spread on the parity graph: each side's late-epoch mean
-    loss at SPREAD_SEEDS, their means and stds, and the port's mean against
-    JAX's within 2x the pooled std of a side's mean (the difference of two
-    means of n seeds: sqrt(s_port^2 / n + s_jax^2 / n))."""
+    loss at the preset's seeds (``spread_seeds``), their means and stds,
+    and the port's mean against JAX's within 2x the pooled std of a side's
+    mean (the difference of two means of n seeds: sqrt(s_port^2 / n_port +
+    s_jax^2 / n_jax))."""
     sides = [("JAX, CPU", jax_dir)] + [
         (f"port, {d.name[5:]}", d) for d in sorted(
             (out / "seeds").glob("port_*")) if d.is_dir()]
     rows = []
     for p in SPREAD_PRESETS:
         vals = {name: [log_mean_loss(d / f"{p}_s{s}.out")
-                       for s in SPREAD_SEEDS] for name, d in sides}
+                       for s in spread_seeds(p)] for name, d in sides}
         j = [v for v in vals["JAX, CPU"] if v is not None]
         for name, vs in vals.items():
             got = [v for v in vs if v is not None]
@@ -647,12 +702,14 @@ def spread_lines(out: Path, jax_dir: Path) -> list:
                       / len(j)) ** 0.5
                 tail = parity_run.judged(m - statistics.fmean(j), 2 * se, 6)
             rows.append(f"| {p}, parity graph | {name} | {cells} | {m:.6f} "
-                        f"+/- {sd:.6f} ({100 * sd / m:.2f}%) | " + tail)
+                        f"+/- {sd:.6f} ({100 * sd / m:.2f}%, n {len(got)}) "
+                        "| " + tail)
     if not any("+/-" in r for r in rows):
         return []
-    return ["", f"## F7: the late-epoch loss over seeds on the parity graph "
-            f"({SPREAD_EPOCHS} epochs, seeds "
-            f"{', '.join(map(str, SPREAD_SEEDS))})", "",
+    return ["", f"## F7 and F10: the late-epoch loss over seeds on the parity "
+            f"graph ({SPREAD_EPOCHS} epochs; seeds " + "; ".join(
+                f"{p} {min(spread_seeds(p))}-{max(spread_seeds(p))}"
+                for p in SPREAD_PRESETS) + ")", "",
             "`parity_run framework --verbose` on `parity_run build`'s graph "
             "(8,000 users, 24,000 items; the harness's configuration of "
             "each preset), both sides with their own random streams: JAX's "
@@ -676,14 +733,17 @@ def _check(label: str, value: str, limit: str, ok) -> str:
 
 
 def driver_lines(out: Path, jax_runs: Path) -> list:
-    """The rows of the parts cred_parity ... eval_breakdown against the JAX
+    """The rows of the parts cred_parity ... sampling_costs against the JAX
     records: Stage-A parity (JAX's verdict rule), eval equivalence and the
     schedules (TEST R@20 within R20_TOL of JAX's), ingest (every line
-    kept), the sharding report (equal element for element) and the ranking
-    probe (chunked top-k sets equal to full width)."""
+    kept), the sharding report (equal element for element), the ranking
+    probe (chunked top-k sets equal to full width), the projection's P=4
+    halo rows (equal to the sharding report's) and the sampler probe's
+    membership checks."""
     lines = ["", "## The remaining protocol drivers (`cred_parity`, "
              "`eval_equiv`, `schedule`, `ingest`, `sharding`, "
-             "`eval_breakdown`)", "",
+             "`eval_breakdown`, `scaling_projection`, `sampling_costs`)",
+             "",
              "| check | port (JAX) | limit | verdict |", "|---|---|---|---|"]
     d = out / "cred_parity"
     oracle = Path(CRED_ORACLE)
@@ -731,6 +791,7 @@ def driver_lines(out: Path, jax_runs: Path) -> list:
             "0.01", dev <= 0.01))
     jcpu = Path(CRED_JAX_CPU)
     lines += _cred_seed_rows(d, creds.get("oracle"), jcpu)
+    lines += _cred_spread_rows(d, creds.get("oracle"), jcpu)
     for n in cred_parity_run.MODES:
         if n in creds and (jcpu / f"cred_{n}.npy").exists():
             j = np.load(jcpu / f"cred_{n}.npy")
@@ -786,7 +847,20 @@ def driver_lines(out: Path, jax_runs: Path) -> list:
         "ranking probe: chunked top-k sets equal to full width (min share)",
         "missing" if eb is None else f"{agree:.4f}", "1.0",
         None if eb is None else agree == 1.0))
-    cards = sorted({r["card"] for r in (ex, ap, sc, ib, sh, eb) if r
+    pj = _json(out / "scaling_projection.json")
+    chk = None if pj is None else pj.get("sharding_report_check")
+    lines.append(_check(
+        "scaling projection (a projection): P=4 halo rows against the "
+        "sharding report",
+        "missing" if chk is None else "equal" if chk["equal"] else "differ",
+        "equal", None if chk is None else chk["equal"]))
+    sg = _json(out / "sampling_costs.json")
+    m = None if sg is None else sg["membership"]
+    lines.append(_check(
+        "sampling costs: hash table and binary search agree, members found",
+        "missing" if m is None else f"{m['agree']}, {m['members_found']}",
+        "True, True", None if m is None else m["agree"] and m["members_found"]))
+    cards = sorted({r["card"] for r in (ex, ap, sc, ib, sh, eb, pj, sg) if r
                     and r.get("card")})
     return lines + ["", "Cards: " + (", ".join(cards) or "none recorded")
                     + "; JAX values in brackets (TPU v5e records)."]
@@ -820,6 +894,46 @@ def _cred_seed_rows(d: Path, oracle, jcpu: Path) -> list:
         rows.append(f"| Stage A at seed {seed}: JAX's verdict rule | "
                     + "; ".join(cells) + " | (context) | |")
     return rows
+
+
+def _p10_offsets(oracle, paths) -> list:
+    """p10(vector) - p10(oracle) of each saved slas vector in ``paths`` of
+    the oracle's shape; the missing ones are skipped."""
+    base = np.percentile(oracle, 10)
+    vecs = [np.load(p) for p in paths if p.exists()]
+    return [float(np.percentile(v, 10) - base) for v in vecs
+            if v.shape == oracle.shape]
+
+
+def _cred_spread_rows(d: Path, oracle, jcpu: Path) -> list:
+    """F9's context row: the slas mode's p10 offset from the oracle's over
+    seeds 42 and CRED_SEEDS, mean +/- std and n for each side (the port's
+    ``d`` and ``d/seeds/s<seed>``, JAX on a CPU ``jcpu`` and
+    ``jcpu/seeds``), and the port's mean against JAX's within 2 pooled SE
+    (sqrt(s_port^2 / n_port + s_jax^2 / n_jax)).  JAX's one-seed rule
+    above is unchanged."""
+    if oracle is None:
+        return []
+    sides = {"port": _p10_offsets(oracle, [d / "cred_slas.npy"] + [
+                 d / "seeds" / f"s{s}" / "cred_slas.npy" for s in CRED_SEEDS]),
+             "JAX on a CPU": _p10_offsets(oracle, [jcpu / "cred_slas.npy"] + [
+                 jcpu / "seeds" / f"cred_slas_s{s}.npy" for s in CRED_SEEDS])}
+    cells, stat = [], {}
+    for side, xs in sides.items():
+        if len(xs) < 2:
+            cells.append(f"{side} n {len(xs)}")
+            continue
+        stat[side] = (statistics.fmean(xs), statistics.stdev(xs), len(xs))
+        cells.append(f"{side} {stat[side][0]:+.4f} +/- {stat[side][1]:.4f} "
+                     f"(n {len(xs)})")
+    if len(stat) == 2:
+        (mp, sp, np_), (mj, sj, nj) = stat["port"], stat["JAX on a CPU"]
+        se2 = 2 * (sp ** 2 / np_ + sj ** 2 / nj) ** 0.5
+        cells.append(f"diff {mp - mj:+.4f}, 2 pooled SE {se2:.4f}: "
+                     + ("within" if abs(mp - mj) <= se2 else "outside"))
+    return [f"| Stage A: slas p10 - oracle p10 over seeds 42 and "
+            f"{min(CRED_SEEDS)}-{max(CRED_SEEDS)} (mean +/- std) | "
+            + "; ".join(cells) + " | (context) | |"]
 
 
 def _r20_row(label: str, rec, jax, wall_key: str) -> str:

@@ -39,6 +39,12 @@ OP_KEYS = ("mode", "n_devices", "num_src", "num_dst", "num_edges",
 DIR_KEYS = ("edge_counts", "e_max", "pad_fraction", "h_max")
 
 
+def graph_key(graph) -> dict:
+    """The record's ``graph`` entry: users, items and train edges."""
+    return {"users": graph.num_users, "items": graph.num_items,
+            "train_edges": int(graph.train_edges.shape[1])}
+
+
 def operator_stats(graph, model: int = MODEL) -> dict:
     """Each direction's halo-mode ``ShardedSpmmOperator.stats`` on a model
     axis of ``model``: ``scaled_10m``'s weights with the JAX script's
@@ -129,8 +135,7 @@ def main(argv=None, graph=None) -> dict:
     print(f"graph: {graph.summary()}", file=sys.stderr)
     report = {"config": "scaled_10m",
               "mesh": {"data": DATA, "model": MODEL},
-              "graph": {"users": graph.num_users, "items": graph.num_items,
-                        "train_edges": int(graph.train_edges.shape[1])},
+              "graph": graph_key(graph),
               "operators": {k: record_stats(v) for k, v in
                             operator_stats(graph).items()},
               "full_eval_exclusion": exclusion_block(graph)}

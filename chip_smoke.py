@@ -240,10 +240,26 @@ Phases (each prints one line; any failure exits non-zero):
      kept, no kernel launched; (e) ``eval_breakdown`` for 2 batches of 512
      val users over the 1,000,000 items: every part timed, chunked top-k
      sets equal to full-width ones, no kernel launched.
+ 21. the last three modules (``probes/scaling_terms.py``,
+     ``probes/sampling_costs.py``, ``scripts/scaling_projection.py``) in
+     process, each counted as its own path: (a) the scaling terms on phase
+     18's trainer and graph at one timed call a loop (``scaling_terms``: a
+     propagate 8 ``segment_spmm``; an epoch 8 for its cache, then 4
+     ``gather_backward`` and 1 ``fused_adam`` a step; each loop one untimed
+     call first; the evaluation's two calls a propagate each): the JAX
+     record's keys, finite positive terms, scan_steps_s = epoch_s -
+     propagate_s, the JAX record's ``config``; (b) the sampler probe at 3
+     timed calls over JAX's catalogues and the north star's
+     (``sampling_costs``): draws in range, hash table and binary search
+     agreeing, every member found, no kernel launched; (c) the projection on
+     (a)'s terms (``scaling_projection``): rows for P = 2, 4, 8, the
+     bandwidths not measured, the P=4 halo rows equal to a halo-mode
+     sharding record of the same graph and weights, JAX's TPU terms
+     refused, no kernel launched.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
 3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e), 18 (b), (c), 19
-(a)-(d) and 20 (a)-(e)) and read after it; a kernel that is not on that
+(a)-(d), 20 (a)-(e) and 21 (a)-(c)) and read after it; a kernel that is not on that
 path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
@@ -3804,8 +3820,10 @@ def phase_northstar(dev, graph) -> dict:
         f"sparse.mm {r['library_ms']:.4f} bound {r['bound_ms']:.4f}"
         for r in rows) + "; " + _gather_line(gathers) + "; "
         + _adam_line("both tables", adam_pair))
-    del tr, u_k, i_k, params
-    return {"launches_by_kernel": counts, "split": NORTHSTAR_SPLIT,
+    del u_k, i_k, params
+    # the trainer serves phase 21's scaling terms (no second set-up)
+    return {"_trainer": tr, "launches_by_kernel": counts,
+            "split": NORTHSTAR_SPLIT,
             "steps_per_epoch": nb, "host_setup_s": host, "line": line,
             "bench_northstar_s": bench_s, "evaluate_full_val_s": eval_s,
             "val_metrics": val, "table_max_abs_diff": tab_err,
@@ -4323,10 +4341,15 @@ def phase_end_to_end(dev, tmp: Path) -> dict:
 
 DRIVER_EPOCHS = 2             # cred_parity's framework and downstream runs
 EQUIV_USERS = 4096            # val users of the overlap (of 100,000)
-EQUIV_BF16_MIN = 0.9          # bf16's mean Jaccard@20 after one epoch
+# bf16's mean Jaccard@20 after one epoch: a bound on gross errors.  The
+# one-epoch model's near-tied scores reorder under the bf16 tables' rounding
+# alone (0.9613 on an H100 with fp32 sums); the full-length record is held
+# to the protocol's 0.99
+EQUIV_BF16_MIN = 0.9
 SCHEDULE_EPOCHS = 1           # schedule_compare's per_batch, of 12
 INGEST_PYTHON_LINES = 100_000  # the Python reader's prefix
 BREAKDOWN_BATCHES = 2         # eval_breakdown's batches of 512 (of 6)
+EVAL_BATCH = 512              # the full evaluation's users a batch
 
 
 def _cred_full_graph_counts(nb: int, epochs: int) -> dict:
@@ -4444,6 +4467,35 @@ def phase_cred_parity(dev, tmp: Path) -> dict:
             "downstream": ds, "held_against_plain": held}
 
 
+def bf16_product_check(dev, num_items: int, dim: int) -> dict:
+    """The bf16 evaluation's product on the card (``score_product``: one
+    bf16 GEMM with an fp32 output) against the fp32 product of the same
+    tables rounded to bf16 and upcast, at one evaluation batch against
+    ``num_items`` items: each bf16 product is exact in fp32, so the two may
+    differ by summation order only, at most 2 (D - 1) 2^-24 sum_k |p_k| a
+    score.  Launches no hand kernel."""
+    from importlib import import_module
+
+    import torch
+    rt = import_module(f"{PKG}.eval.retrieval")
+    rt.exact_fp32_matmul()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    u = 0.1 * torch.randn(EVAL_BATCH, dim, generator=gen, device=dev)
+    items = 0.1 * torch.randn(num_items, dim, generator=gen, device=dev)
+    got = rt.score_product(u, items, "bf16")
+    ub, ib = u.bfloat16().float(), items.bfloat16().float()
+    gap = (got - ub @ ib.T).abs_()
+    ratio = gap.div_(2 * (dim - 1) * 2.0 ** -24 * (ub.abs() @ ib.abs().T))
+    worst = float(ratio.nan_to_num_(0.0).max())
+    if got.dtype != torch.float32 or got.shape != (EVAL_BATCH, num_items) \
+            or not worst <= 1.0:
+        raise AssertionError(f"bf16 product with fp32 output: {got.dtype} "
+                             f"{tuple(got.shape)}, gap {worst} of its bound")
+    return {"shape": [EVAL_BATCH, num_items, dim],
+            "max_gap_over_bound": worst}
+
+
 def phase_eval_equiv(dev, graph, tmp: Path, params: dict) -> dict:
     """Phase 20 (c): ``scripts/eval_equiv_r4 overlap`` on phase 18's planted
     graph, counted as the ``eval_equiv`` path (one propagate), in all three
@@ -4453,7 +4505,8 @@ def phase_eval_equiv(dev, graph, tmp: Path, params: dict) -> dict:
     set-up).  Approx equal to exact (the port ranks it exactly), bf16 mean
     Jaccard@20 >= EQUIV_BF16_MIN (a bound on gross errors: after one epoch
     near-tied scores reorder more than on the full-length record, which is
-    held to 0.99)."""
+    held to 0.99).  Then ``bf16_product_check`` at the graph's catalogue,
+    outside the count."""
     import io
     from importlib import import_module
     ee = import_module(f"{PKG}.scripts.eval_equiv_r4")
@@ -4473,14 +4526,17 @@ def phase_eval_equiv(dev, graph, tmp: Path, params: dict) -> dict:
     if ov["n_users"] != EQUIV_USERS or a["frac_identical"] != 1.0 \
             or not EQUIV_BF16_MIN <= b["mean"] <= 1.0:
         raise AssertionError(f"eval_equiv overlap {ov}")
+    product = bf16_product_check(dev, graph.num_items,
+                                 ee.make_cfg("exact").emb_dim)
     log(f"[phase 20c] eval_equiv_r4 overlap on {ov['n_users']:,} val users "
         f"of the planted graph ({t_overlap:.1f}s): approx identical on "
         f"{a['frac_identical']:.1%}, bf16 mean Jaccard@20 {b['mean']:.4f} "
-        f"(min {b['min']:.4f}), bf16 tables scored in fp32 "
-        f"{ov['jaccard_' + ee.BF16_FP32_SCORES + '_vs_exact']['mean']:.4f}; "
-        f"launches {counts}")
+        f"(min {b['min']:.4f}); launches {counts}; the bf16 GEMM with fp32 "
+        f"output at {product['shape']} within "
+        f"{product['max_gap_over_bound']:.3f} of its summation-order bound "
+        f"of the upcast product")
     return {"launches_by_kernel": counts, "overlap_s": t_overlap,
-            "overlap": ov}
+            "overlap": ov, "bf16_product": product}
 
 
 def phase_schedule_compare(dev, graph, tmp: Path) -> dict:
@@ -4588,6 +4644,161 @@ def phase_eval_breakdown(dev, graph, tmp: Path) -> dict:
         + f"; sets agree {rec['sets_agree_min']}; bf16 Jaccard vs fp32 "
         f"{rec['bf16_jaccard_vs_fp32_mean']:.4f}")
     return rec
+
+
+# phase 21: the last three modules (probes/scaling_terms.py,
+# probes/sampling_costs.py, scripts/scaling_projection.py)
+# --------------------------------------------------------------------------
+
+TERMS_ITERS = 1               # scaling_terms' timed calls a loop (of 3)
+SAMPLING_ITERS = 3            # sampling_costs' timed calls (of 20)
+
+
+def phase_scaling_terms(dev, tr, tmp: Path) -> dict:
+    """Phase 21 (a): ``probes/scaling_terms`` on phase 18's north-star
+    trainer at TERMS_ITERS iteration, counted as the ``scaling_terms``
+    path: each loop runs one untimed call first; a propagate 2K
+    ``segment_spmm``, an epoch 2K for its cache then 4 ``gather_backward``
+    and 1 ``fused_adam`` a step, the evaluation's two calls a propagate
+    each.  The JAX record's keys plus ``card``, ``iters`` and ``clock``;
+    finite positive terms, scan_steps_s = epoch_s - propagate_s, and a
+    ``config`` the projection accepts."""
+    import io
+    from importlib import import_module
+    st = import_module(f"{PKG}.probes.scaling_terms")
+    sp = import_module(f"{PKG}.scripts.scaling_projection")
+    root = Path(__file__).resolve().parent
+    K, nb = tr.cfg.num_layers, -(-tr.train_users.size // tr.cfg.batch_size)
+    path = tmp / "scaling_terms.json"
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rec = st.main(["--iters", str(TERMS_ITERS), "--out", str(path),
+                       "--device", str(dev)], trainer=tr)
+    wall = time.perf_counter() - t
+    n = TERMS_ITERS + 1
+    counts = read_counts({"segment_spmm": 2 * K * (2 * n + 2),
+                          "gather_backward": NORTHSTAR_GATHERS * nb * n,
+                          "fused_adam": nb * n}, "scaling_terms path")
+    jax = json.loads((root / "runs" / "scaling_terms.json").read_text())
+    terms = [rec[k] for k in ("propagate_s", "epoch_s", "eval_epoch_s")]
+    if set(rec) != set(jax) | {"card", "iters", "clock"} \
+            or not all(np.isfinite(v) and v > 0 for v in terms) \
+            or rec["scan_steps_s"] != max(rec["epoch_s"] - rec["propagate_s"],
+                                          0.0) \
+            or rec["config"] != jax["config"] or rec["fixed_s"] != 0.0:
+        raise AssertionError(f"scaling_terms record {rec}")
+    sp.check_terms(rec)
+    log(f"[phase 21a] scaling_terms on phase 18's trainer ({TERMS_ITERS} "
+        f"timed call a loop, {wall:.1f}s): propagate "
+        f"{1e3 * rec['propagate_s']:.3f} ms, epoch {rec['epoch_s']:.4f} s "
+        f"({nb} steps), scan steps {rec['scan_steps_s']:.4f} s, full "
+        f"evaluation {rec['eval_epoch_s']:.3f} s; {rec['config']}; card "
+        f"{rec['card']}; launches {counts}")
+    return {"launches_by_kernel": counts, "wall_s": wall, "terms": rec,
+            "_path": path}
+
+
+def phase_sampling_costs(dev, tmp: Path) -> dict:
+    """Phase 21 (b): ``probes/sampling_costs`` at SAMPLING_ITERS timed
+    calls (the catalogues and graph of the JAX probes): every draw in range,
+    every timing positive, hash table and binary search agreeing, every
+    member found, no kernel launched."""
+    import io
+    from importlib import import_module
+    sc = import_module(f"{PKG}.probes.sampling_costs")
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = sc.main(["--iters", str(SAMPLING_ITERS), "--out",
+                       str(tmp / "sampling_costs.json"), "--device",
+                       str(dev)])
+    wall = time.perf_counter() - t
+    counts = read_counts({}, "sampling_costs path")
+    m, alias = rec["membership"], rec["alias"]
+    ms = [r["us_per_draw_batch"] for r in alias] + list(
+        rec["sampling"]["ms"].values()) + list(m["ms"].values())
+    if not (m["agree"] and m["members_found"]) \
+            or not all(r["in_range"] for r in alias) \
+            or sorted({r["catalogue"] for r in alias}) != sorted(sc.CATALOGUES) \
+            or not all(np.isfinite(v) and v > 0 for v in ms):
+        raise AssertionError(f"sampling_costs record {rec}")
+    log(f"[phase 21b] sampling_costs ({SAMPLING_ITERS} timed calls, "
+        f"{wall:.1f}s, {rec['clock']}): draws (us a batch of "
+        f"{alias[0]['draws_per_call']:,}) " + ", ".join(
+            f"{r['draw']} I={r['catalogue']:,} {r['us_per_draw_batch']:.1f}"
+            for r in alias) + "; sampling (ms) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec["sampling"]["ms"].items())
+        + "; membership (ms) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in m["ms"].items())
+        + f"; hash table {m['hash_table']['size']:,} slots, load "
+        f"{m['hash_table']['load']:.3f}; agree {m['agree']}, members found "
+        f"{m['members_found']}")
+    return {"launches_by_kernel": counts, "wall_s": wall, "record": rec}
+
+
+def phase_scaling_projection(dev, graph, terms_path: Path, tmp: Path) -> dict:
+    """Phase 21 (c): ``scripts/scaling_projection`` on (a)'s terms and
+    phase 18's planted graph: rows for P = 2, 4, 8 with finite times and
+    efficiencies, the bandwidths marked as not measured, and the P=4 halo
+    rows equal to a ``sharding_report`` record of the same graph; no kernel
+    launched.  A TPU-labelled terms file (the JAX record) is refused.  The
+    halo check here is a consistency check within the port: the record and
+    the projection come from one planner (``_plan_dir``), so it catches a
+    wiring slip (P h_max against P^2 h_max), not a planner fault.  The
+    independent check is ``scripts/protocol.py summary``'s, against the
+    committed, JAX-equal ``runs/torch_h100/sharding_report.json``."""
+    import io
+    from importlib import import_module
+    sr = import_module(f"{PKG}.scripts.sharding_report")
+    sp = import_module(f"{PKG}.scripts.scaling_projection")
+    root = Path(__file__).resolve().parent
+    reset_counts()
+    t = time.perf_counter()
+    stats = sr.operator_stats(graph, sp.CHECK_P)
+    record = tmp / "sharding_report.json"
+    record.write_text(json.dumps({
+        "graph": sr.graph_key(graph),
+        "operators": {k: sr.record_stats(v) for k, v in stats.items()}}))
+    t_report = time.perf_counter() - t
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rep = sp.main(["--terms", str(terms_path), "--sharding-report",
+                       str(record), "--out",
+                       str(tmp / "scaling_projection.json"), "--device",
+                       str(dev)], graph=graph, report_graph=graph)
+        try:
+            sp.main(["--terms", str(root / "runs" / "scaling_terms.json"),
+                     "--sharding-report", "", "--out",
+                     str(tmp / "tpu.json"), "--device", str(dev)],
+                    graph=graph)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    wall = time.perf_counter() - t
+    counts = read_counts({}, "scaling_projection path")
+    rows = rep["projections"]
+    a = rep["assumptions"]
+    if set(rows) != {"2", "4", "8"} or not rep["sharding_report_check"][
+            "equal"] or refused is None or "TPU" not in refused \
+            or any(a[k]["measured"] for k in sp.ASSUMPTIONS) \
+            or not all(np.isfinite(r["scaling_efficiency"])
+                       and 0 < r["scaling_efficiency"] <= 1
+                       and r["t_epoch_projected_s"] > 0
+                       for r in rows.values()):
+        raise AssertionError(f"scaling_projection {rows} "
+                             f"{rep.get('sharding_report_check')} "
+                             f"refused {refused}")
+    log(f"[phase 21c] scaling_projection (a projection; {wall:.1f}s, the "
+        f"halo record {t_report:.1f}s): " + "; ".join(
+            f"P={P} t_epoch {r['t_epoch_projected_s']:.4f} s (collectives "
+            f"{1e3 * r['t_collective_s']:.2f} ms) efficiency "
+            f"{r['scaling_efficiency']:.3f}" for P, r in rows.items())
+        + "; P=4 halo rows equal to the sharding record of the same graph "
+        "(a consistency check within the port); TPU terms refused")
+    return {"launches_by_kernel": counts, "wall_s": wall, "projections": rows,
+            "check": rep["sharding_report_check"], "refused": refused}
 
 
 def _rounded(obj):
@@ -4841,6 +5052,7 @@ def run(dev, out_path=None) -> int:
         raise AssertionError(f"planted graph split {split}, not "
                              f"{NORTHSTAR_SPLIT}")
     northstar = phase_northstar(dev, ns_graph)
+    ns_trainer = northstar.pop("_trainer")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         ns_two = phase_northstar_two_stage(dev, ns_graph, Path(tmp))
@@ -4873,8 +5085,21 @@ def run(dev, out_path=None) -> int:
                                         reviews_dir / "reviews.jsonl")
         breakdown = phase_eval_breakdown(dev, ns_graph, tmp)
     reviews_tmp.cleanup()
-    del ns_graph
     log(f"[phase 20] done in {time.perf_counter() - t20:.1f}s")
+
+    # ---- phase 21: the last three modules, on phase 18's graph ----
+    t21 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        terms = phase_scaling_terms(dev, ns_trainer, tmp)
+        del ns_trainer
+        torch.cuda.empty_cache()
+        last = {"scaling_terms": terms,
+                "sampling_costs": phase_sampling_costs(dev, tmp),
+                "scaling_projection": phase_scaling_projection(
+                    dev, ns_graph, terms.pop("_path"), tmp)}
+    del ns_graph
+    log(f"[phase 21] done in {time.perf_counter() - t21:.1f}s")
 
     dirs = res["directions"]
     pair = times["adam_pair"]
@@ -4899,12 +5124,13 @@ def run(dev, out_path=None) -> int:
              "northstar": northstar["launches_by_kernel"],
              "northstar_two_stage": ns_two["launches_by_kernel"],
              **{k: v["launches_by_kernel"] for k, v in protocol.items()},
-             **{k: v["launches_by_kernel"] for k, v in drivers.items()}}
+             **{k: v["launches_by_kernel"] for k, v in drivers.items()},
+             **{k: v["launches_by_kernel"] for k, v in last.items()}}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
                   "serving_mesh", "training_mesh", "cred_full_graph_mesh",
                   "serving_chunked", "training_chunked",
                   "cred_full_graph_chunked", "northstar",
-                  "northstar_two_stage", *protocol, *drivers)
+                  "northstar_two_stage", *protocol, *drivers, *last)
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",
@@ -5001,6 +5227,7 @@ def run(dev, out_path=None) -> int:
              "protocol": protocol,
              "drivers": {**drivers, "ingest_bench": ingest_rec,
                          "eval_breakdown": breakdown},
+             "last_modules": last,
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},

@@ -5,10 +5,15 @@
 * the parts ``eval_equiv``, ``schedule``, ``ingest``, ``sharding`` and
   ``eval_breakdown`` run on the CPU at a tiny size and write their records
   (the 10M graphs replaced by a small one, the epochs and lines cut);
+* the parts ``scaling_terms``, ``sampling_costs`` and
+  ``scaling_projection`` run on the CPU at a tiny size; the projection
+  refuses the CPU's terms and takes terms labelled with a card;
 * ``summary`` holds the drivers' records against the JAX package's: the
   JAX records themselves in the port's place give PASS rows, a missing
   record a PENDING row; the F7 rows hold the port's seed spread against
-  the committed JAX logs;
+  the committed JAX logs; F9's row gives each side's slas p10 offset from
+  the oracle over seeds, mean +/- std and n, and the two means against 2
+  pooled SE;
 * ``parity_run report`` ends with the Stage-A report when there is one.
 """
 
@@ -24,7 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.bench import northstar_graph
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.graph.build import synthetic_bipartite_graph
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.probes import sampling_costs
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.scripts import eval_equiv_r4, parity_run, protocol, schedule_compare
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -33,7 +40,8 @@ PORT = ("beyond_binary_fake_user_detection_a_credibility_aware_graph_based_"
 MODULES = ("scripts.cred_parity_run", "scripts.eval_equiv_r4",
            "scripts.schedule_compare", "scripts.ingest_bench",
            "scripts.sharding_report", "probes.eval_breakdown",
-           "scripts.protocol")
+           "probes.scaling_terms", "probes.sampling_costs",
+           "scripts.scaling_projection", "scripts.protocol")
 
 
 @pytest.fixture(autouse=True)
@@ -90,6 +98,77 @@ def test_parts_on_cpu(tmp_path, monkeypatch):
     assert min(eb["sets_agree_min"].values()) == 1.0
     logs = sorted(p.name for p in (tmp_path / "logs").iterdir())
     assert "eval_equiv_overlap.out" in logs and "ingest_bench.out" in logs
+
+
+def test_scaling_and_sampling_parts_on_cpu(tmp_path, monkeypatch):
+    small = synthetic_bipartite_graph(800, 1500, 8.0, seed=0, power=1.0)
+    monkeypatch.setattr(protocol, "_GRAPHS", {
+        "planted": northstar_graph(400, 900, 8.0), "large": small})
+    monkeypatch.setattr(sampling_costs, "CATALOGUES", (3000,))
+    monkeypatch.setattr(sampling_costs, "REF_GRAPH", dict(
+        num_users=300, num_items=700, edges_per_user=6.0, seed=0, power=1.0))
+    with contextlib.redirect_stdout(io.StringIO()):
+        protocol.main(["scaling_terms", "sampling_costs", "sharding", "--out",
+                       str(tmp_path), "--device", "cpu"])
+    terms = {p: json.loads((tmp_path / f"scaling_terms{p}.json").read_text())
+             for p in ("", "_fp32", "_bf16")}
+    assert terms[""]["config"] == terms["_fp32"]["config"] == \
+        "scaled_10m(planted 10M, fp32 messages, per_epoch)"
+    assert "bf16 messages" in terms["_bf16"]["config"]
+    sg = json.loads((tmp_path / "sampling_costs.json").read_text())
+    assert sg["membership"]["agree"] and sg["membership"]["members_found"]
+    with pytest.raises(ValueError, match="CUDA card"), \
+            contextlib.redirect_stdout(io.StringIO()):
+        protocol.main(["scaling_projection", "--out", str(tmp_path),
+                       "--device", "cpu"])
+    (tmp_path / "scaling_terms.json").write_text(json.dumps(
+        {**terms[""], "device": "cuda", "card": "NVIDIA H100 80GB HBM3, "
+         "700.00 W"}))
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        protocol.main(["scaling_projection", "--out", str(tmp_path),
+                       "--device", "cpu"])
+    pj = json.loads((tmp_path / "scaling_projection.json").read_text())
+    assert set(pj["projections"]) == {"2", "4", "8"}
+    assert pj["sharding_report_check"]["equal"]
+    rows = _rows("\n".join(protocol.driver_lines(tmp_path, ROOT / "runs")))
+    for label in ("scaling projection (a projection): P=4 halo rows against "
+                  "the sharding report", "sampling costs: hash table and "
+                  "binary search agree, members found"):
+        assert rows[label].endswith("| PASS |"), rows[label]
+
+
+def test_summary_cred_seed_spread_row(tmp_path, monkeypatch):
+    """F9's row on a fabricated seed set: each vector the oracle shifted by
+    a constant, so its p10 offset is that constant."""
+    oracle = np.load(ROOT / protocol.CRED_ORACLE)
+    d, jcpu = tmp_path / "cred_parity", tmp_path / "jax_cpu"
+    (jcpu / "seeds").mkdir(parents=True)
+    monkeypatch.setattr(protocol, "CRED_SEEDS", (43, 44))
+    for seed, c in zip((42, 43, 44), (0.10, 0.12, 0.14)):
+        path = d / "cred_slas.npy" if seed == 42 else \
+            d / "seeds" / f"s{seed}" / "cred_slas.npy"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.save(path, oracle + c)
+    np.save(jcpu / "cred_slas.npy", oracle + 0.10)
+    np.save(jcpu / "seeds" / "cred_slas_s43.npy", oracle + 0.12)
+    rows = protocol._cred_spread_rows(d, oracle, jcpu)
+    # 2 sqrt(0.02^2 / 3 + 0.0141^2 / 2) = 0.0306
+    assert rows == [
+        "| Stage A: slas p10 - oracle p10 over seeds 42 and 43-44 (mean "
+        "+/- std) | port +0.1200 +/- 0.0200 (n 3); JAX on a CPU +0.1100 "
+        "+/- 0.0141 (n 2); diff +0.0100, 2 pooled SE 0.0306: within | "
+        "(context) | |"]
+    for seed, c in ((42, 0.20), (43, 0.22), (44, 0.24)):
+        np.save(jcpu / "cred_slas.npy" if seed == 42 else
+                jcpu / "seeds" / f"cred_slas_s{seed}.npy", oracle + c)
+    row = protocol._cred_spread_rows(d, oracle, jcpu)[0]
+    assert "+0.2200 +/- 0.0200 (n 3); diff -0.1000, 2 pooled SE 0.0327" \
+        in row and row.endswith("outside | (context) | |")
+    # one seed is no spread
+    row = protocol._cred_spread_rows(d, oracle, tmp_path / "none")[0]
+    assert "JAX on a CPU n 0" in row and "diff" not in row
+    assert protocol._cred_spread_rows(d, None, jcpu) == []
 
 
 def _rows(text):
