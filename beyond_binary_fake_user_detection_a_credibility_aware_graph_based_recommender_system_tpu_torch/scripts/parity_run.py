@@ -91,19 +91,32 @@ def cmd_build(args):
     print(f"cred: p50={q[0]:.4f} p90={q[1]:.4f} -> {cred_path}")
 
 
-def cmd_framework(args) -> dict:
+def load_graph(path):
+    """The graph ``build`` wrote."""
     from ..graph.build import BipartiteGraph
-    from ..train.trainer import RecTrainer
+    z = np.load(path)
+    return BipartiteGraph(num_users=int(z["num_users"]),
+                          num_items=int(z["num_items"]),
+                          train_edges=z["train_edges"],
+                          val_edges=z["val_edges"],
+                          test_edges=z["test_edges"])
+
+
+def framework_config(config: str, epochs: int, eval_every: int, seed: int,
+                     **flags):
+    """The ``RecConfig`` ``framework`` trains ``config`` with."""
     from ..utils.config import RecConfig
+    return RecConfig(name=f"parity_{config}", epochs=epochs,
+                     eval_every=eval_every, seed=seed, **CONFIG_MAP[config],
+                     **flags)
+
+
+def cmd_framework(args) -> dict:
+    from ..train.trainer import RecTrainer
     from ..utils.device import card_name, resolve_device
 
     dev = resolve_device(args.device)
-    z = np.load(args.graph)
-    graph = BipartiteGraph(num_users=int(z["num_users"]),
-                           num_items=int(z["num_items"]),
-                           train_edges=z["train_edges"],
-                           val_edges=z["val_edges"],
-                           test_edges=z["test_edges"])
+    graph = load_graph(args.graph)
     # --fast: the most aggressive throughput stack (bf16 messages, the
     # cached per-epoch propagation, full-catalogue evaluation with bf16
     # scores), against the oracle's full-catalogue protocol; "approx" ranks
@@ -111,9 +124,8 @@ def cmd_framework(args) -> dict:
     fast_kw = dict(FAST_FLAGS) if args.fast else {}
     if args.eval_mode:
         fast_kw["eval_mode"] = args.eval_mode
-    cfg = RecConfig(name=f"parity_{args.config}",
-                    epochs=args.epochs, eval_every=args.eval_every,
-                    seed=args.seed, **CONFIG_MAP[args.config], **fast_kw)
+    cfg = framework_config(args.config, args.epochs, args.eval_every,
+                           args.seed, **fast_kw)
     cred = None
     if args.config in REAL_CRED:
         cred_path = args.cred or str(Path(args.graph).parent / "cred.npy")

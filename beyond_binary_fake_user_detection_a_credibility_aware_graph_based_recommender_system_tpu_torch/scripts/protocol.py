@@ -31,6 +31,20 @@ Parts (run in the order given):
               epochs, each log in ``<out>/seeds/port_<card|cpu>/`` (the
               JAX package's, made with its own ``scripts/parity_run.py``
               on a CPU, are ``runs/torch_h100/seeds/jax_cpu/``);
+  f10_replay  F10's paired replay on the parity harness's graph: for
+              REPLAY_SEEDS, the port trains SPREAD_EPOCHS epochs from the
+              JAX trainer's own initial parameters and on its own epoch
+              draws (``scripts/jax_streams.py``: JAX's threefry streams in
+              numpy), no evaluation, one ``Epoch NN | loss=...`` line an
+              epoch in ``<out>/f10/replay_<card|cpu>/<preset>_s<seed>.out``,
+              the same seeds' JAX logs (SPREAD_JAX) being the other side;
+  f10_seeds   degree_aware at F10_SEEDS, each seed twice: the port on its
+              own streams (as ``seeds_parity``) in
+              ``<out>/f10/port_<card|cpu>/`` and the replay of JAX's
+              streams in ``<out>/f10/replay_<card|cpu>/``;
+  f10_mixed   for each of F10_ARMS, degree_aware at all of F10's seeds with
+              that part of the stream from the port's own generator and the
+              rest JAX's: ``<out>/f10/mixed_<arm>_<card|cpu>/``;
   cred_parity ``cred_parity_run build``, ``framework`` in both modes (60
               epochs), ``downstream`` (120 epochs) and ``report`` against
               the committed oracle vector: ``<out>/cred_parity/``;
@@ -72,6 +86,10 @@ with its wall seconds and TEST Recall@20.
         eval_equiv schedule ingest sharding eval_breakdown scaling_terms \\
         sampling_costs scaling_projection summary \\
         --out runs/torch_h100 [--device cuda|cpu]
+
+``--only PRESET:SEED`` (repeatable) limits the ``f10_`` parts to those
+runs (the CPU's replay of degree_aware at seed 42: ``f10_replay --device
+cpu --only degree_aware:42``).
 """
 
 from __future__ import annotations
@@ -89,9 +107,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import (cred_parity_run, eval_equiv_r4, ingest_bench, parity_run,
-               precision_compare, reference_regression, scaling_projection,
-               schedule_compare, sharding_report, two_stage_demo)
+from . import (cred_parity_run, eval_equiv_r4, ingest_bench, jax_streams,
+               parity_run, precision_compare, reference_regression,
+               scaling_projection, schedule_compare, sharding_report,
+               two_stage_demo)
 from ..probes import eval_breakdown, sampling_costs, scaling_terms
 from ..utils.device import card_name, resolve_device
 
@@ -130,10 +149,27 @@ SPREAD_JAX = "runs/torch_h100/seeds/jax_cpu"
 # with the JAX record of the preset's own seed, JAX's seed spread there)
 SPREAD_JAX_REF = "runs/torch_h100/seeds/jax_cpu/ref_scale"
 SPREAD_MIN = 3                 # seeds that make a spread
+# F10's paired replay: the seeds whose JAX logs are committed (SPREAD_JAX),
+# each replayed on the JAX trainer's own streams
+REPLAY_SEEDS = {"degree_aware": tuple(range(42, 50)),
+                "vanilla": SPREAD_SEEDS}
+# a replay's last-LOSS_WINDOW mean within this share of JAX's
+REPLAY_REL_TOL = 1e-4
+# an epoch's |replay - JAX| past the logs' 6-decimal rounding
+LOG_RTOL, LOG_ATOL = 2e-6, 5e-7
+# F10's further seeds, fixed before any run: the port's own streams against
+# the replay of JAX's, with SPREAD_SEEDS_BY_PRESET's eight: n = 32 a side
+F10_PRESET = "degree_aware"
+F10_SEEDS = tuple(range(50, 74))
+# F10's bisection: each arm takes parts of the stream from the port's own
+# generator and the rest from JAX's, at all 32 seeds
+F10_ARMS = ("init", "perm", "samples", "perm+samples")
 R20_TOL = 0.002                # a 10M run's TEST R@20 against JAX's
 INGEST_LINES = 10_000_000      # the ingest bench's stream (the JAX record's)
 PARTS = ("reference", "precision", "parity", "two_stage", "seeds",
-         "northstar", "seeds_parity", "cred_parity", "cred_seeds",
+         "northstar", "seeds_parity", "f10_replay", "f10_seeds",
+         "f10_mixed",
+         "cred_parity", "cred_seeds",
          "eval_equiv", "schedule", "ingest", "sharding", "eval_breakdown",
          "scaling_terms", "sampling_costs", "scaling_projection", "summary")
 # the JAX record of the north star's quality: scaled_10m on the same
@@ -249,12 +285,16 @@ def part_northstar(out: Path, dev) -> None:
                  str(NORTHSTAR_EPOCHS)], dev)
 
 
+def _side(dev) -> str:
+    return "h100" if dev.type == "cuda" else dev.type
+
+
 def part_seeds_parity(out: Path, dev) -> None:
     d = out / "seeds"
     graph = d / "parity_graph.npz"
     _run(out, "seeds_parity_build", parity_run.main,
          ["build", "--out", str(graph)], dev)
-    side = d / ("port_h100" if dev.type == "cuda" else f"port_{dev.type}")
+    side = d / f"port_{_side(dev)}"
     for p in SPREAD_PRESETS:
         for seed in spread_seeds(p):
             _run(out, f"seeds_parity_{p}_s{seed}", parity_run.main,
@@ -263,6 +303,160 @@ def part_seeds_parity(out: Path, dev) -> None:
                   "--eval-every", "2", "--verbose", "--device", str(dev),
                   "--out", str(side / "framework.jsonl")], dev,
                  log_path=side / f"{p}_s{seed}.out")
+
+
+def _f10_graph(out: Path, dev) -> Path:
+    """The parity harness's graph for F10's parts (built once)."""
+    graph = out / "f10" / "parity_graph.npz"
+    if not graph.exists():
+        _run(out, "f10_build", parity_run.main,
+             ["build", "--out", str(graph)], dev)
+    return graph
+
+
+def _wanted(preset: str, seed: int, only) -> bool:
+    return not only or f"{preset}:{seed}" in only
+
+
+PORT_STREAMS = ("init", "perm", "samples")
+
+
+def replay(graph_path: Path, preset: str, seed: int, epochs: int, dev,
+           log_path: Path, port_streams=()) -> float:
+    """``epochs`` epochs of ``parity_run framework``'s configuration of
+    ``preset`` on the JAX trainer's streams at ``seed``: its initial
+    parameters and every epoch's draws from ``scripts/jax_streams.py``,
+    trained by ``RecTrainer.run_epoch`` on ``dev`` (each epoch's draws for
+    the next one made while the card trains); one ``Epoch NN | loss=...``
+    line an epoch, as ``fit`` logs it.  No evaluation: it does not touch
+    the training loss.  ``port_streams`` (of PORT_STREAMS) takes those
+    parts from the port's own stream instead, a ``torch.Generator`` on
+    ``dev`` seeded ``seed`` and drawn in ``fit``'s order: the initial
+    tables (``init_params``), the epoch's permutation, its positives and
+    negatives (``RecTrainer._sample_epoch``); with all three it is
+    ``fit``'s own stream.  Returns the wall seconds."""
+    from ..models.lightgcn import init_params, params_from_jax
+    from ..ops.adam import adam_init
+    from ..ops.sampling import PopMixSampler
+    from ..train.trainer import RecTrainer
+    from ..utils.device import card_name
+
+    unknown = set(port_streams) - set(PORT_STREAMS)
+    if unknown:
+        raise ValueError(f"unknown streams {sorted(unknown)}")
+    graph = parity_run.load_graph(graph_path)
+    cfg = parity_run.framework_config(preset, epochs, 2, seed)
+    cred = None
+    if preset in parity_run.REAL_CRED:
+        cred = np.load(Path(graph_path).parent / "cred.npy").astype(
+            np.float32)
+    t0 = time.perf_counter()
+    tr = RecTrainer(cfg, graph, cred=cred, device=dev, verbose=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    init, key = jax_streams.init_state(seed, cfg, graph.num_users,
+                                       graph.num_items)
+    if "init" in port_streams:
+        params = init_params(gen, cfg, graph.num_users, graph.num_items)
+    else:
+        params = params_from_jax(init, dev)
+    opt = adam_init(params)
+    csr = graph.user_csr("train")
+    popmix = None
+    if cfg.negative_sampler == "popmix":
+        popmix = PopMixSampler.build(graph.train_item_degrees(), "cpu",
+                                     mix_pop=cfg.neg_mix_pop,
+                                     gamma=cfg.neg_pop_gamma)
+    B, n = cfg.batch_size, tr.train_users.size
+    nb = -(-n // B)
+
+    def draw(key):
+        if not {"perm", "samples"} & set(port_streams):
+            return jax_streams.epoch_draws(key, tr.train_users, csr, cfg,
+                                           graph.num_items, popmix)
+        if {"perm", "samples"} <= set(port_streams):
+            return tuple(b.cpu().numpy() for b in tr.draw_epoch(gen)), key
+        kperm, ksamp, key = jax_streams.split(key, 3)
+        if "perm" in port_streams:
+            perm = tr.train_users[torch.randperm(
+                n, generator=gen, device=dev).cpu().numpy()]
+        else:
+            perm = jax_streams.permutation(kperm,
+                                           tr.train_users.astype(np.int32))
+        users = np.concatenate([perm, np.zeros(nb * B - n, perm.dtype)])
+        if "samples" in port_streams:
+            pos, neg = (x.cpu().numpy() for x in tr._sample_epoch(
+                gen, torch.as_tensor(users, dtype=torch.int64, device=dev)))
+        else:
+            pos, neg = jax_streams.epoch_samples(ksamp, users, csr, cfg,
+                                                 graph.num_items, popmix)
+        mask = np.arange(nb * B) < n
+        return tuple(np.asarray(x, np.int64).reshape(nb, B)
+                     for x in (users, pos, neg)) + (mask.reshape(nb, B),), key
+
+    what = ("the JAX trainer's init and draws (scripts/jax_streams.py)"
+            if not port_streams else "the port's own " + ", ".join(
+                s for s in PORT_STREAMS if s in port_streams)
+            + ", the JAX trainer's " + (", ".join(
+                s for s in PORT_STREAMS if s not in port_streams) or
+                "nothing"))
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(log_path, "w") as log:
+        print(f"[replay] {preset} seed {seed}: {what}, {epochs} epochs on "
+              f"{card_name(dev) or dev.type}", file=log)
+        batches, key = draw(key)
+        for epoch in range(1, epochs + 1):
+            losses = tr.run_epoch(params, opt, tuple(
+                torch.as_tensor(b, device=dev) for b in batches))
+            if epoch < epochs:
+                batches, key = draw(key)
+            print(f"Epoch {epoch:02d} | loss={float(losses.mean()):.6f}",
+                  file=log, flush=True)
+        wall = time.perf_counter() - t0
+        print(f"[replay] wall {wall:.1f}s", file=log)
+    _free(dev)
+    print(f"[protocol] replay {preset} s{seed}"
+          + (f" ({'+'.join(port_streams)} the port's)" if port_streams
+             else "") + f": {wall:.1f}s", flush=True)
+    return wall
+
+
+def part_f10_replay(out: Path, dev, only=()) -> None:
+    graph = _f10_graph(out, dev)
+    side = out / "f10" / f"replay_{_side(dev)}"
+    for p, seeds in REPLAY_SEEDS.items():
+        for seed in seeds:
+            if _wanted(p, seed, only):
+                replay(graph, p, seed, SPREAD_EPOCHS, dev,
+                       side / f"{p}_s{seed}.out")
+
+
+def part_f10_seeds(out: Path, dev, only=()) -> None:
+    graph = _f10_graph(out, dev)
+    d = out / "f10"
+    port = d / f"port_{_side(dev)}"
+    for seed in F10_SEEDS:
+        if not _wanted(F10_PRESET, seed, only):
+            continue
+        _run(out, f"f10_seeds_{F10_PRESET}_s{seed}", parity_run.main,
+             ["framework", "--graph", str(graph), "--config", F10_PRESET,
+              "--seed", str(seed), "--epochs", str(SPREAD_EPOCHS),
+              "--eval-every", "2", "--verbose", "--device", str(dev),
+              "--out", str(port / "framework.jsonl")], dev,
+             log_path=port / f"{F10_PRESET}_s{seed}.out")
+        replay(graph, F10_PRESET, seed, SPREAD_EPOCHS, dev,
+               d / f"replay_{_side(dev)}" / f"{F10_PRESET}_s{seed}.out")
+
+
+def part_f10_mixed(out: Path, dev, only=()) -> None:
+    graph = _f10_graph(out, dev)
+    for arm in F10_ARMS:
+        d = out / "f10" / f"mixed_{arm}_{_side(dev)}"
+        for seed in spread_seeds(F10_PRESET) + F10_SEEDS:
+            if _wanted(F10_PRESET, seed, only):
+                replay(graph, F10_PRESET, seed, SPREAD_EPOCHS, dev,
+                       d / f"{F10_PRESET}_s{seed}.out",
+                       port_streams=tuple(arm.split("+")))
 
 
 def part_cred_parity(out: Path, dev) -> None:
@@ -649,6 +843,7 @@ def summary_lines(out: Path, jax_runs: Path) -> list:
     lines.append(_loss_row("scaled_10m", out / name, jax_runs / NORTHSTAR_JAX,
                            rel))
     lines += spread_lines(out, Path(SPREAD_JAX))
+    lines += f10_lines(out, Path(SPREAD_JAX))
     lines += driver_lines(out, jax_runs)
     return lines
 
@@ -666,6 +861,172 @@ def log_mean_loss(path: Path):
     if len(losses) < SPREAD_EPOCHS:
         return None
     return statistics.fmean(losses[-LOSS_WINDOW:])
+
+
+def log_losses(path: Path):
+    """Every epoch's loss of a training log, or None while the run is
+    missing or short of SPREAD_EPOCHS epochs."""
+    if not path.exists():
+        return None
+    losses = [float(x) for x in _EPOCH_LOSS.findall(path.read_text())]
+    return losses if len(losses) >= SPREAD_EPOCHS else None
+
+
+def replay_row(preset: str, seed: int, side: str, replay_log: Path,
+               jax_log: Path):
+    """One replay row against the same seed's JAX log, and its verdict
+    (None while a side is missing): the last-LOSS_WINDOW means within
+    REPLAY_REL_TOL of JAX's; beside it, not judged, the largest
+    per-epoch |diff| / loss and the first epoch whose |diff| is past the
+    logs' rounding (LOG_RTOL * loss + LOG_ATOL)."""
+    r, j = log_losses(replay_log), log_losses(jax_log)
+    head = f"| {preset} | {seed} | {side} | "
+    if r is None or j is None:
+        return head + " | ".join(
+            "missing" if v is None else
+            f"{statistics.fmean(v[-LOSS_WINDOW:]):.6f}" for v in (j, r)) \
+            + " | | | PENDING | | |", None
+    mr = statistics.fmean(r[-LOSS_WINDOW:])
+    mj = statistics.fmean(j[-LOSS_WINDOW:])
+    n = min(len(r), len(j))
+    r, j = np.array(r[:n]), np.array(j[:n])
+    diff = np.abs(r - j)
+    past = np.nonzero(diff > LOG_RTOL * j + LOG_ATOL)[0]
+    ok = abs(mr - mj) <= REPLAY_REL_TOL * abs(mj)
+    return (head + f"{mj:.6f} | {mr:.6f} | {mr - mj:+.7f} | "
+            f"{REPLAY_REL_TOL * abs(mj):.7f} | {'PASS' if ok else 'FAIL'} | "
+            f"{float((diff / j).max()):.2e} | "
+            + (f"{int(past[0]) + 1}" if past.size else "none") + " |"), ok
+
+
+def f10_lines(out: Path, jax_dir: Path) -> list:
+    """F10's records: a replay row a seed on the card, and one a seed
+    replayed on another side (``f10_replay``), then
+    ``f10_seeds``' seeds and the row of the port's own streams against
+    JAX's at n = SPREAD_SEEDS_BY_PRESET's + F10_SEEDS a side, within 2
+    pooled SE (``spread_lines``' limit).  JAX's side is its logs at the
+    first seeds and the card's replay at F10_SEEDS, which stands for JAX
+    only when every replay row on the card passes."""
+    d = out / "f10"
+    sides = sorted(p for p in d.glob("replay_*") if p.is_dir())
+    if not sides:
+        return []
+    rows, verdicts = [], {}
+    for side in sides:
+        for p, seeds in REPLAY_SEEDS.items():
+            for seed in seeds:
+                log = side / f"{p}_s{seed}.out"
+                if side.name != "replay_h100" and not log.exists():
+                    continue          # another side replays some seeds
+                row, ok = replay_row(p, seed, side.name[7:], log,
+                                     jax_dir / f"{p}_s{seed}.out")
+                rows.append(row)
+                verdicts.setdefault(side.name[7:], []).append(ok)
+    lines = ["", f"## F10: the port on the JAX trainer's own random streams "
+             f"(paired replay, parity graph, {SPREAD_EPOCHS} epochs)", "",
+             "`protocol f10_replay`: the port trains from the JAX trainer's "
+             "initial parameters on its own epoch draws, reproduced in numpy "
+             "by `scripts/jax_streams.py` (bit-equal to `jax.random` and to "
+             "the JAX epoch's draws, `tests/test_torch_jax_streams.py`), "
+             "against the JAX package's logs of the same seeds "
+             f"(`{jax_dir}/`).  Last-{LOSS_WINDOW} means; tol = "
+             f"{REPLAY_REL_TOL:g} x JAX's.  Not judged: the largest "
+             "per-epoch |diff| / loss, and the first epoch whose |diff| "
+             f"exceeds {LOG_RTOL:g} x loss + {LOG_ATOL:g} (the logs' "
+             "6-decimal rounding).", "",
+             "| preset | seed | side | JAX | replay | diff | tol | verdict | "
+             "max epoch |diff| / loss | first epoch past rounding |",
+             "|---|---|---|---|---|---|---|---|---|---|"] + rows
+    # the n = 32 row: the port's own streams on the card against JAX's
+    first = spread_seeds(F10_PRESET)
+    port = ([log_mean_loss(out / "seeds" / "port_h100" /
+                           f"{F10_PRESET}_s{s}.out") for s in first]
+            + [log_mean_loss(d / "port_h100" / f"{F10_PRESET}_s{s}.out")
+               for s in F10_SEEDS])
+    jax = ([log_mean_loss(jax_dir / f"{F10_PRESET}_s{s}.out")
+            for s in first]
+           + [log_mean_loss(d / "replay_h100" / f"{F10_PRESET}_s{s}.out")
+              for s in F10_SEEDS])
+    seeds = list(first) + list(F10_SEEDS)
+
+    def cell(v):
+        return "missing" if v is None else f"{v:.6f}"
+
+    lines += ["", f"`protocol f10_seeds`: {F10_PRESET} at seeds "
+              f"{min(F10_SEEDS)}-{max(F10_SEEDS)} (fixed before any run) "
+              "beside seeds " + f"{min(first)}-{max(first)}: the port on "
+              "its own streams on the card (`seeds_parity`'s and "
+              "`f10_seeds`' logs) against JAX's streams (its logs at "
+              f"{min(first)}-{max(first)}, the card's replay at "
+              f"{min(F10_SEEDS)}-{max(F10_SEEDS)}).  Every seed is "
+              "reported.", "",
+              "| seed | port's own streams | JAX's streams |", "|---|---|---|"]
+    lines += [f"| {s} | {cell(a)} | {cell(b)}"
+              + (" (replay)" if s in F10_SEEDS and b is not None else "")
+              + " |" for s, a, b in zip(seeds, port, jax)]
+    card = verdicts.get("h100", [])
+    got_p = [v for v in port if v is not None]
+    got_j = [v for v in jax if v is not None]
+    row = f"| {F10_PRESET}, parity graph | {len(got_p)} / {len(got_j)} | "
+    if len(got_p) < 2 or len(got_j) < 2:
+        row += "| | | | PENDING |"
+    else:
+        mp, mj = statistics.fmean(got_p), statistics.fmean(got_j)
+        sp, sj = statistics.stdev(got_p), statistics.stdev(got_j)
+        tol = 2 * (sp ** 2 / len(got_p) + sj ** 2 / len(got_j)) ** 0.5
+        row += f"{mp:.6f} +/- {sp:.6f} | {mj:.6f} +/- {sj:.6f} | "
+        if len(got_p) < len(port) or len(got_j) < len(jax) or not card \
+                or None in card:
+            row += f"{mp - mj:+.6f} | {tol:.6f} | PENDING |"
+        elif not all(card):
+            row += (f"{mp - mj:+.6f} | {tol:.6f} | NOT JUDGED: a replay "
+                    "row fails on the card, so the replay does not stand "
+                    "for JAX |")
+        else:
+            row += parity_run.judged(mp - mj, tol, 6)
+    lines += ["", "| preset | n (port / JAX) | port mean +/- std | JAX mean "
+              "+/- std | diff | tol (2 pooled SE) | verdict |",
+              "|---|---|---|---|---|---|---|", row]
+    return lines + mixed_lines(d, seeds, jax)
+
+
+def mixed_lines(d: Path, seeds: list, jax: list) -> list:
+    """``f10_mixed``' rows: each arm's late-epoch mean loss a seed against
+    JAX's streams at the same seed (``jax``, as ``f10_lines`` reads them),
+    the arm sharing the rest of the stream: the mean of the per-seed
+    differences within 2 of its standard errors."""
+    arms = [a for a in F10_ARMS if (d / f"mixed_{a}_h100").is_dir()]
+    if not arms:
+        return []
+    rows = []
+    for arm in arms:
+        vals = [log_mean_loss(d / f"mixed_{arm}_h100" /
+                              f"{F10_PRESET}_s{s}.out") for s in seeds]
+        diffs = [a - b for a, b in zip(vals, jax)
+                 if a is not None and b is not None]
+        head = f"| {arm} | {len(diffs)} | "
+        if len(diffs) < 2:
+            rows.append(head + "| | | PENDING |")
+            continue
+        m, sd = statistics.fmean(diffs), statistics.stdev(diffs)
+        tol = 2 * sd / len(diffs) ** 0.5
+        verdict = (parity_run.judged(m, tol, 6) if len(diffs) == len(seeds)
+                   else f"{m:+.6f} | {tol:.6f} | PENDING |")
+        mean = statistics.fmean(v for v in vals if v is not None)
+        rows.append(head + f"{mean:.6f} | {sd:.6f} | " + verdict)
+    return ["", "`protocol f10_mixed`: the same seeds with one part of the "
+            "stream from the port's own generator (a `torch.Generator` on "
+            "the card seeded with the seed, drawn in `fit`'s order) and the "
+            "rest from JAX's (`scripts/jax_streams.py`): `init` the initial "
+            "tables, `perm` the epoch's permutation, `samples` its "
+            "positives and negatives, `perm+samples` both from one "
+            "generator, as `fit` draws them.  A row: the arm's late-epoch "
+            "mean loss minus JAX's streams' at the same seed, their mean "
+            "within 2 standard errors of it (PASS: that part alone moves "
+            "the loss by less than the noise can show).", "",
+            "| port's part | n | arm mean | std of the per-seed diff | "
+            "mean diff | tol (2 SE) | verdict |",
+            "|---|---|---|---|---|---|---|"] + rows
 
 
 def spread_seeds(preset: str) -> tuple:
@@ -957,6 +1318,9 @@ def main(argv=None) -> None:
                     help="the JAX package's records (summary)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs on the CPU)")
+    ap.add_argument("--only", action="append", default=[],
+                    metavar="PRESET:SEED",
+                    help="limit the f10_ parts to these runs")
     args = ap.parse_args(argv)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -977,7 +1341,10 @@ def main(argv=None) -> None:
             (out / "SUMMARY.md").write_text("\n".join(
                 summary_lines(out, Path(args.jax_runs))) + "\n")
             continue
-        globals()[f"part_{part}"](out, dev)
+        if part.startswith("f10_"):
+            globals()[f"part_{part}"](out, dev, only=args.only)
+        else:
+            globals()[f"part_{part}"](out, dev)
         print(f"[protocol] part {part}: {time.perf_counter() - t0:.1f}s",
               flush=True)
     (out / "card.json").write_text(json.dumps({"card": card_name(dev),

@@ -256,10 +256,20 @@ Phases (each prints one line; any failure exits non-zero):
      bandwidths not measured, the P=4 halo rows equal to a halo-mode
      sharding record of the same graph and weights, JAX's TPU terms
      refused, no kernel launched.
+ 22. the JAX trainer's own random streams (``scripts/jax_streams.py``, a
+     numpy replica of its threefry draws) driving the port, counted
+     (``jax_streams_replay``): degree_aware on a 150 x 80 graph at seed 5,
+     20 epochs from the replica's initial parameters, each on the
+     replica's draws through ``RecTrainer.run_epoch``; the parameters' and
+     every epoch's draws' sha256 equal to the JAX package's, written on a
+     CPU in ``runs/torch_h100/f10/jax_small.json``, and every epoch's mean
+     loss within rtol 2e-6 of JAX's jitted epoch there (12 SpMM, 10 gather
+     backwards and 1 Adam launch a step); then one propagate and 3 steps
+     on the graph held against the plain path.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
 3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e), 18 (b), (c), 19
-(a)-(d), 20 (a)-(e) and 21 (a)-(c)) and read after it; a kernel that is not on that
+(a)-(d), 20 (a)-(e), 21 (a)-(c) and 22) and read after it; a kernel that is not on that
 path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
@@ -4801,6 +4811,93 @@ def phase_scaling_projection(dev, graph, terms_path: Path, tmp: Path) -> dict:
             "check": rep["sharding_report_check"], "refused": refused}
 
 
+# --------------------------------------------------------------------------
+# phase 22: the JAX trainer's own random streams
+# --------------------------------------------------------------------------
+
+# the JAX package's side, written on a CPU by tests/test_torch_jax_streams.py
+JAX_STREAMS_FIXTURE = "runs/torch_h100/f10/jax_small.json"
+
+
+def _sha256(arrays) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for x in arrays:
+        h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
+def phase_jax_streams(dev) -> dict:
+    """Phase 22: ``scripts/jax_streams.py`` (the JAX trainer's threefry
+    streams in numpy) driving the port on the card, counted as the
+    ``jax_streams_replay`` path: degree_aware on the fixture's small graph
+    from the replica's initial parameters, each epoch on the replica's
+    draws through ``RecTrainer.run_epoch``.  The parameters' and every
+    epoch's draws' sha256 equal to the JAX package's (the fixture), every
+    epoch's mean loss within the fixture's rtol of JAX's jitted epoch on a
+    CPU; 12 ``segment_spmm``, 10 ``gather_backward`` and 1 ``fused_adam``
+    a step.  Then the graph's shapes held against the plain path."""
+    import torch
+    from importlib import import_module
+    js = import_module(f"{PKG}.scripts.jax_streams")
+    build = import_module(f"{PKG}.graph.build")
+    presets = import_module(f"{PKG}.configs.presets")
+    lightgcn = import_module(f"{PKG}.models.lightgcn")
+    adam = import_module(f"{PKG}.ops.adam")
+    trainer = import_module(f"{PKG}.train.trainer")
+    root = Path(__file__).resolve().parent
+    fx = json.loads((root / JAX_STREAMS_FIXTURE).read_text())
+    graph = build.synthetic_bipartite_graph(**fx["graph"])
+    fit = {k: tuple(v) if isinstance(v, list) else v
+           for k, v in fx["fit"].items()}
+    cfg = presets.get_preset(fx["preset"]).replace(**fit)
+    cred = np.random.default_rng(0).uniform(
+        0.2, 1.0, graph.num_users).astype(np.float32)
+    t = time.perf_counter()
+    tr = trainer.RecTrainer(cfg, graph, cred=cred, device=dev, verbose=False)
+    init, key = js.init_state(fx["seed"], cfg, graph.num_users,
+                              graph.num_items)
+    if _sha256(init[k] for k in sorted(init)) != fx["init_sha256"]:
+        raise AssertionError("phase 22: the replica's initial parameters "
+                             "differ from the JAX trainer's")
+    params = lightgcn.params_from_jax(init, dev)
+    opt = adam.adam_init(params)
+    csr = graph.user_csr("train")
+    losses = []
+    reset_counts()
+    for epoch, sha in enumerate(fx["draws_sha256"], 1):
+        batches, key = js.epoch_draws(key, tr.train_users, csr, cfg,
+                                      graph.num_items)
+        if _sha256(batches) != sha:
+            raise AssertionError(f"phase 22: epoch {epoch}'s draws differ "
+                                 f"from the JAX epoch's")
+        losses.append(float(tr.run_epoch(params, opt, tuple(
+            torch.as_tensor(b, device=dev) for b in batches)).mean()))
+    nb = batches[0].shape[0]
+    counts = read_counts(_per_batch_counts(cfg, nb, len(losses), 0),
+                         "jax_streams_replay path")
+    wall = time.perf_counter() - t
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, fx["losses"])]
+    if len(losses) != fx["epochs"] or not np.isfinite(losses).all() \
+            or max(rel) > fx["loss_rtol"]:
+        raise AssertionError(f"phase 22: epoch losses {losses} against "
+                             f"JAX's {fx['losses']} (rtol "
+                             f"{fx['loss_rtol']:g}): {max(rel):.3g}")
+    plain = trainer.RecTrainer(cfg.replace(spmm_backend="torch"), graph,
+                               cred=cred, device=dev, verbose=False)
+    held = _held_against_plain(tr, plain, "phase 22")
+    log(f"[phase 22] jax_streams: {fx['preset']} on the JAX trainer's "
+        f"streams, {graph.num_users} users x {graph.num_items} items, seed "
+        f"{fx['seed']}, {len(losses)} epochs of {nb} steps ({wall:.1f}s): "
+        f"init and every epoch's draws equal to JAX's (sha256), losses "
+        f"within {max(rel):.3g} of JAX's jitted epochs on a CPU (rtol "
+        f"{fx['loss_rtol']:g}); last {losses[-1]:.7f} (JAX "
+        f"{fx['losses'][-1]:.7f}); launches {counts}; held against the "
+        f"plain path: {_held_line({'small graph': held})}")
+    return {"launches_by_kernel": counts, "wall_s": wall, "losses": losses,
+            "max_rel_loss_diff": max(rel), "held": held}
+
+
 def _rounded(obj):
     """``obj`` with every float to 6 significant digits, for the kernels'
     line (the ``--out`` file keeps every digit)."""
@@ -5101,6 +5198,12 @@ def run(dev, out_path=None) -> int:
     del ns_graph
     log(f"[phase 21] done in {time.perf_counter() - t21:.1f}s")
 
+    # ---- phase 22: the JAX trainer's own random streams on the card ----
+    t22 = time.perf_counter()
+    torch.cuda.empty_cache()
+    streams = phase_jax_streams(dev)
+    log(f"[phase 22] done in {time.perf_counter() - t22:.1f}s")
+
     dirs = res["directions"]
     pair = times["adam_pair"]
     cred_gathers = cred_times["gather_backward"]
@@ -5125,12 +5228,14 @@ def run(dev, out_path=None) -> int:
              "northstar_two_stage": ns_two["launches_by_kernel"],
              **{k: v["launches_by_kernel"] for k, v in protocol.items()},
              **{k: v["launches_by_kernel"] for k, v in drivers.items()},
-             **{k: v["launches_by_kernel"] for k, v in last.items()}}
+             **{k: v["launches_by_kernel"] for k, v in last.items()},
+             "jax_streams_replay": streams["launches_by_kernel"]}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
                   "serving_mesh", "training_mesh", "cred_full_graph_mesh",
                   "serving_chunked", "training_chunked",
                   "cred_full_graph_chunked", "northstar",
-                  "northstar_two_stage", *protocol, *drivers, *last)
+                  "northstar_two_stage", *protocol, *drivers, *last,
+                  "jax_streams_replay")
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",
@@ -5227,7 +5332,7 @@ def run(dev, out_path=None) -> int:
              "protocol": protocol,
              "drivers": {**drivers, "ingest_bench": ingest_rec,
                          "eval_breakdown": breakdown},
-             "last_modules": last,
+             "last_modules": last, "jax_streams": streams,
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},

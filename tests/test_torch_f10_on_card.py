@@ -18,6 +18,23 @@ two ways, without JAX:
 * the draws: the card's positives, uniform negatives and pop-mix negatives,
   400 for each train user from a CUDA generator, against their exact
   distribution by chi-square (p > 1e-3), as the CPU's are held.
+
+On the parity harness's graph itself (8,000 users, 24,000 items, the graph
+of F10's runs), the card's draws beside the JAX trainer's
+(``scripts/jax_streams.py``, the replica of its threefry streams):
+
+* positives, 400 for each of the 7,986 train users: each user's counts
+  against the uniform over its row, and the card's against the replica's
+  (homogeneity);
+* uniform negatives, 400 for each train user: each user's counts in 16
+  bins of item ids against its exact distribution (uniform over the items
+  not in its row), the counts by item pooled over users, the same for the
+  replica's, the two against each other; and no negative is one of the
+  user's own train items (only the unchecked last candidate could be one,
+  with probability (deg / I)^9);
+* the epoch's permutation (``torch.randperm`` on the card), 2,000 of them:
+  how often each user lands in the first of the two batches, against the
+  binomial of a uniform permutation.
 """
 
 import numpy as np
@@ -29,6 +46,7 @@ from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommend
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.graph.build import synthetic_bipartite_graph
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops import sampling
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops.adam import adam_init
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.scripts import jax_streams
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.train.trainer import RecTrainer
 
 EPOCHS = 20
@@ -38,6 +56,13 @@ DRAWS = 400
 P_MIN = 1e-3
 # tests/test_torch_f7_loss.py's graph and fit settings
 FIT = dict(batch_size=64, eval_every=1, sampled_negatives=20, Ks=(5, 10))
+# the parity harness's graph (parity_run build's defaults)
+PARITY_GRAPH = dict(num_users=8000, num_items=24000, edges_per_user=8.0,
+                    seed=7, power=1.0, hash_split="md5")
+NEG_BINS = 16
+PERMS = 2000
+BATCH = 4096                  # the parity configurations' batch
+DEVICE = "cuda"
 
 
 def _card():
@@ -135,3 +160,110 @@ def test_samplers_on_the_card_follow_their_distribution(sampler):
     dof = int(live.sum() - live.any(1).sum())
     chi = ((counts[live] - expected[live]) ** 2 / expected[live]).sum()
     assert stats.chi2.sf(chi, dof) > P_MIN
+
+
+def _sf(chi: float, dof: int) -> float:
+    return float(stats.chi2.sf(chi, dof))
+
+
+def _parity_draws(kind: str):
+    """DRAWS draws for each train user of the parity graph: the card's
+    (a CUDA generator) and the replica's of JAX's (a threefry key), with
+    the graph's train membership as a (U, I) bool array."""
+    graph = synthetic_bipartite_graph(**PARITY_GRAPH)
+    tr = graph.user_csr("train")
+    I = graph.num_items
+    users = np.nonzero(tr.degrees() > 0)[0]
+    rows = np.tile(users, DRAWS)
+    t_rows = torch.as_tensor(rows, device=DEVICE)
+    csr = sampling.DeviceCSR.from_host(tr, I, DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    key = jax_streams.prng_key(11)
+    if kind == "positives":
+        card = sampling.sample_positives(gen, csr, t_rows)
+        jax = jax_streams.sample_positives(key, tr, rows)
+    else:
+        card = sampling.sample_negatives_uniform(gen, csr, t_rows, I)
+        jax = jax_streams.sample_negatives_uniform(key, tr, rows, I, 8)
+    member = np.zeros((graph.num_users, I), bool)
+    member[np.repeat(np.arange(graph.num_users), tr.degrees()),
+           tr.indices] = True
+    return graph, tr, rows, card.cpu().numpy(), np.asarray(jax), member
+
+
+def _homogeneity(a: np.ndarray, b: np.ndarray) -> float:
+    """p of two count arrays (one row a multinomial of the same total on
+    each side) coming from one distribution."""
+    both = (a + b) > 0
+    e = (a + b)[both] / 2.0
+    chi = (((a[both] - e) ** 2 + (b[both] - e) ** 2) / e).sum()
+    rows = both.any(-1).sum() if a.ndim > 1 else 1
+    return _sf(chi, int(both.sum() - rows))
+
+
+@pytest.mark.cuda
+def test_positives_on_the_parity_graph_follow_the_row():
+    _card()
+    graph, tr, rows, card, jax, member = _parity_draws("positives")
+    I, deg = graph.num_items, tr.degrees()
+    live = deg > 0
+    exp = DRAWS / np.maximum(deg, 1)
+    ps = []
+    counts = []
+    for got in (card, jax):
+        c = np.bincount(rows.astype(np.int64) * I + got,
+                        minlength=graph.num_users * I).reshape(-1, I)
+        assert c[~member].sum() == 0
+        chi = ((c - exp[:, None]) ** 2 / exp[:, None])[member].sum()
+        ps.append(_sf(chi, int(member.sum() - live.sum())))
+        counts.append(np.where(member, c, 0)[live])
+    ps.append(_homogeneity(*counts))
+    assert min(ps) > P_MIN, ps
+
+
+@pytest.mark.cuda
+def test_uniform_negatives_on_the_parity_graph_follow_their_law():
+    _card()
+    graph, tr, rows, card, jax, member = _parity_draws("uniform")
+    I, deg = graph.num_items, tr.degrees()
+    live = deg > 0
+    bins = np.arange(I) * NEG_BINS // I
+    # each user's exact distribution: uniform over the items not in its row
+    free = ~member[live]
+    per_bin = np.stack([free[:, bins == b].sum(1) for b in range(NEG_BINS)],
+                       axis=1)
+    exp_bin = DRAWS * per_bin / free.sum(1, keepdims=True)
+    exp_item = DRAWS * (free / free.sum(1, keepdims=True)).sum(0)
+    ps, by_bin, by_item = [], [], []
+    for got in (card, jax):
+        assert not member[rows, got].any(), "a negative in its user's row"
+        c = np.zeros((graph.num_users, NEG_BINS))
+        np.add.at(c, (rows, bins[got]), 1)
+        c = c[live]
+        ps.append(_sf(((c - exp_bin) ** 2 / exp_bin).sum(),
+                      int(live.sum()) * (NEG_BINS - 1)))
+        ci = np.bincount(got, minlength=I)
+        ps.append(_sf(((ci - exp_item) ** 2 / exp_item).sum(), I - 1))
+        by_bin.append(c)
+        by_item.append(ci)
+    ps += [_homogeneity(*by_bin), _homogeneity(*by_item)]
+    assert min(ps) > P_MIN, ps
+
+
+@pytest.mark.cuda
+def test_the_cards_permutation_splits_the_batches_uniformly():
+    _card()
+    graph = synthetic_bipartite_graph(**PARITY_GRAPH)
+    n = int((graph.user_csr("train").degrees() > 0).sum())
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    first = torch.zeros(n, dtype=torch.int64, device=DEVICE)
+    for _ in range(PERMS):
+        first[torch.randperm(n, generator=gen, device=DEVICE)[:BATCH]] += 1
+    c = first.cpu().numpy().astype(np.float64)
+    q = BATCH / n
+    # each permutation puts BATCH users in the first batch: n - 1 dof
+    chi = ((c - PERMS * q) ** 2 / (PERMS * q * (1 - q))).sum()
+    assert _sf(chi * (n - 1) / n, n - 1) > P_MIN
+

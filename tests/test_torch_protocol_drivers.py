@@ -13,7 +13,11 @@
   record a PENDING row; the F7 rows hold the port's seed spread against
   the committed JAX logs; F9's row gives each side's slas p10 offset from
   the oracle over seeds, mean +/- std and n, and the two means against 2
-  pooled SE;
+  pooled SE; F10's rows: a replay of JAX's streams against the JAX log of
+  the same seed, the port's own streams against JAX's over 32 seeds, and
+  the mixed arms;
+* ``protocol.replay`` on the CPU follows the JAX package's own
+  ``scripts/parity_run.py framework`` log epoch by epoch;
 * ``parity_run report`` ends with the Stage-A report when there is one.
 """
 
@@ -315,3 +319,150 @@ def test_loss_limit_from_both_sides_seed_spread(tmp_path):
     assert sp == pytest.approx(np.std(vals, ddof=1) / np.mean(vals))
     # JAX's extra seeds are read from SPREAD_JAX_REF: one run is no spread
     assert sj is None or sj >= 0.0
+
+
+def _f10_logs(d, preset, seeds, losses_of):
+    d.mkdir(parents=True, exist_ok=True)
+    for s in seeds:
+        _log(d / f"{preset}_s{s}.out", losses_of(s))
+
+
+def test_summary_f10_replay_and_seed_rows(tmp_path, monkeypatch):
+    """F10's rows on tiny logs (8 epochs, means of the last 4): a replay
+    row a seed against the JAX log of the same seed (the limit 1e-4 of
+    JAX's mean; the largest per-epoch |diff| / loss; the first epoch past
+    the logs' rounding), then the n = 2 + 2 row: the port's own streams
+    against JAX's (its logs, then the card's replay), within 2 pooled SE,
+    judged only when every replay row on the card passes; then a mixed
+    arm's row (the port's part against JAX's streams, seed by seed)."""
+    monkeypatch.setattr(protocol, "SPREAD_EPOCHS", 8)
+    monkeypatch.setattr(protocol, "LOSS_WINDOW", 4)
+    monkeypatch.setattr(protocol, "REPLAY_SEEDS", {"degree_aware": (42, 43)})
+    monkeypatch.setattr(protocol, "SPREAD_SEEDS_BY_PRESET",
+                        {"degree_aware": (42, 43)})
+    monkeypatch.setattr(protocol, "F10_SEEDS", (50, 51))
+    jax_dir, f10 = tmp_path / "jax", tmp_path / "f10"
+    base = {42: [0.6, 0.5, 0.4, 0.3, 0.2, 0.2, 0.2, 0.2],
+            43: [0.6, 0.5, 0.4, 0.3, 0.21, 0.21, 0.21, 0.21]}
+    _f10_logs(jax_dir, "degree_aware", (42, 43), base.get)
+    # s42: epoch 6 on drifts 3e-6 (past 2e-6 x 0.2 + 5e-7 = 9e-7), the
+    # mean by 2.25e-6 of 1e-4 x 0.2; s43: the mean off by 3e-5 > 2.1e-5
+    replay = {42: base[42][:5] + [0.200003] * 3,
+              43: base[43][:4] + [0.21003] * 4}
+    _f10_logs(f10 / "replay_h100", "degree_aware", (42, 43), replay.get)
+    assert protocol.f10_lines(tmp_path / "none", jax_dir) == []
+    lines = protocol.f10_lines(tmp_path, jax_dir)
+    rows = {ln.split("|")[2].strip(): ln for ln in lines
+            if ln.startswith("| degree_aware | ")}
+    assert rows["42"] == ("| degree_aware | 42 | h100 | 0.200000 | "
+                          "0.200002 | +0.0000022 | 0.0000200 | PASS | "
+                          "1.50e-05 | 6 |")
+    assert rows["43"].startswith("| degree_aware | 43 | h100 | 0.210000 | "
+                                 "0.210030 | +0.0000300 | 0.0000210 | FAIL |")
+    assert rows["43"].endswith("| 5 |")
+    # the port's own streams: seeds 42-43 (seeds_parity) and 50-51
+    own = {42: 0.25, 43: 0.27, 50: 0.26, 51: 0.30}
+    _f10_logs(tmp_path / "seeds" / "port_h100", "degree_aware", (42, 43),
+              lambda s: [own[s]] * 8)
+    _f10_logs(f10 / "port_h100", "degree_aware", (50, 51),
+              lambda s: [own[s]] * 8)
+    rep = {50: 0.22, 51: 0.24}
+    _f10_logs(f10 / "replay_h100", "degree_aware", (50, 51),
+              lambda s: [rep[s]] * 8)
+    row = protocol.f10_lines(tmp_path, jax_dir)[-1]
+    assert row.endswith("NOT JUDGED: a replay row fails on the card, so "
+                        "the replay does not stand for JAX |")
+    # with every replay row passing, the row is judged: JAX's side is its
+    # logs at 42-43 and the replay at 50-51
+    _f10_logs(f10 / "replay_h100", "degree_aware", (43,), base.get)
+    lines = protocol.f10_lines(tmp_path, jax_dir)
+    assert "| 50 | 0.260000 | 0.220000 (replay) |" in lines
+    p, j = [0.25, 0.27, 0.26, 0.30], [0.2, 0.21, 0.22, 0.24]
+    sp, sj = np.std(p, ddof=1), np.std(j, ddof=1)
+    tol = 2 * np.sqrt(sp ** 2 / 4 + sj ** 2 / 4)
+    diff = np.mean(p) - np.mean(j)
+    assert diff > tol
+    assert lines[-1] == (
+        f"| degree_aware, parity graph | 4 / 4 | {np.mean(p):.6f} +/- "
+        f"{sp:.6f} | {np.mean(j):.6f} +/- {sj:.6f} | {diff:+.6f} | "
+        f"{tol:.6f} | FAIL |")
+    # a mixed arm: its mean difference from JAX's streams at each seed
+    # within 2 standard errors of it
+    monkeypatch.setattr(protocol, "F10_ARMS", ("init", "perm"))
+    arm = {42: 0.201, 43: 0.212, 50: 0.222, 51: 0.239}
+    _f10_logs(f10 / "mixed_init_h100", "degree_aware", (42, 43, 50, 51),
+              lambda s: [arm[s]] * 8)
+    lines = protocol.f10_lines(tmp_path, jax_dir)
+    d = [0.001, 0.002, 0.002, -0.001]
+    tol = 2 * np.std(d, ddof=1) / 2
+    assert lines[-1] == (f"| init | 4 | {np.mean(list(arm.values())):.6f} "
+                         f"| {np.std(d, ddof=1):.6f} | +{np.mean(d):.6f} | "
+                         f"{tol:.6f} | PASS |")
+    # a seed missing leaves the rows pending
+    (f10 / "mixed_init_h100" / "degree_aware_s43.out").unlink()
+    assert protocol.f10_lines(tmp_path, jax_dir)[-1].endswith("| PENDING |")
+    (f10 / "port_h100" / "degree_aware_s51.out").unlink()
+    lines = protocol.f10_lines(tmp_path, jax_dir)
+    row = [ln for ln in lines if ln.startswith("| degree_aware, parity")]
+    assert row[0].endswith("| PENDING |")
+    assert "| 51 | missing | 0.240000 (replay) |" in lines
+
+
+def test_replay_follows_the_jax_fit_log(tmp_path, capsys):
+    """``protocol.replay`` on the CPU, degree_aware at seed 42 on a small
+    parity graph, against the JAX package's ``scripts/parity_run.py
+    framework --verbose`` on the same graph: every epoch's logged loss
+    within the logs' rounding (no epoch past it)."""
+    import argparse
+    from test_torch_parity_run import SMALL, _jax_script
+    graph = tmp_path / "graph.npz"
+    parity_run.main(["build", "--out", str(graph), *SMALL])
+    epochs = 4
+    capsys.readouterr()
+    _jax_script().cmd_framework(argparse.Namespace(
+        graph=str(graph), config="degree_aware", cred=None, seed=42,
+        epochs=epochs, eval_every=epochs, out=None, verbose=True,
+        fast=False, eval_mode=None, platform="cpu"))
+    jax_log = tmp_path / "jax.out"
+    jax_log.write_text(capsys.readouterr().out)
+    log = tmp_path / "replay" / "degree_aware_s42.out"
+    protocol.replay(graph, "degree_aware", 42, epochs, torch.device("cpu"),
+                    log)
+    text = log.read_text()
+    assert text.startswith("[replay] degree_aware seed 42: ")
+    mine = [float(x) for x in protocol._EPOCH_LOSS.findall(text)]
+    jax = [float(x) for x in protocol._EPOCH_LOSS.findall(
+        jax_log.read_text())]
+    assert len(mine) == len(jax) == epochs
+    for a, b in zip(mine, jax):
+        assert abs(a - b) <= protocol.LOG_RTOL * b + protocol.LOG_ATOL
+
+
+def test_replay_on_the_ports_streams_is_fit(tmp_path, capsys):
+    """``protocol.replay`` with every part of the stream from the port's
+    generator logs what ``parity_run framework --verbose`` (``fit``, with
+    its evaluations) logs at the same seed, epoch for epoch; one part
+    from the port gives another run."""
+    from test_torch_parity_run import SMALL
+    graph = tmp_path / "graph.npz"
+    parity_run.main(["build", "--out", str(graph), *SMALL])
+    epochs = 4
+    capsys.readouterr()
+    parity_run.main(["framework", "--graph", str(graph), "--config",
+                     "degree_aware", "--seed", "42", "--epochs",
+                     str(epochs), "--eval-every", "2", "--verbose",
+                     "--device", "cpu"])
+    fit = protocol._EPOCH_LOSS.findall(capsys.readouterr().out)
+    cpu = torch.device("cpu")
+    logs = {}
+    for arm in ("init+perm+samples", "perm+samples"):
+        log = tmp_path / arm / "degree_aware_s42.out"
+        protocol.replay(graph, "degree_aware", 42, epochs, cpu, log,
+                        port_streams=tuple(arm.split("+")))
+        logs[arm] = protocol._EPOCH_LOSS.findall(log.read_text())
+    assert len(fit) == epochs and logs["init+perm+samples"] == fit
+    assert logs["perm+samples"] != fit
+    with pytest.raises(ValueError, match="unknown streams"):
+        protocol.replay(graph, "degree_aware", 42, 1, cpu, tmp_path / "x",
+                        port_streams=("eval",))
+
