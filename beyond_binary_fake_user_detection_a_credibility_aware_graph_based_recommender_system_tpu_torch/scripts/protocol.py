@@ -45,6 +45,13 @@ Parts (run in the order given):
   f10_mixed   for each of F10_ARMS, degree_aware at all of F10's seeds with
               that part of the stream from the port's own generator and the
               rest JAX's: ``<out>/f10/mixed_<arm>_<card|cpu>/``;
+  f10_fresh   F10's decision on F10_FRESH_SEEDS (fixed before any run),
+              three arms a seed: ``own`` (``parity_run framework``, the
+              port's own streams) in ``<out>/f10/port_<card|cpu>/``,
+              ``jax`` (the replay of JAX's streams) in ``replay_<...>/``
+              and ``twogen`` (the replay on the port's streams with the
+              epochs from a second generator seeded seed +
+              F10_EPOCH_SEED_OFFSET) in ``twogen_<...>/``;
   cred_parity ``cred_parity_run build``, ``framework`` in both modes (60
               epochs), ``downstream`` (120 epochs) and ``report`` against
               the committed oracle vector: ``<out>/cred_parity/``;
@@ -164,11 +171,24 @@ F10_SEEDS = tuple(range(50, 74))
 # F10's bisection: each arm takes parts of the stream from the port's own
 # generator and the rest from JAX's, at all 32 seeds
 F10_ARMS = ("init", "perm", "samples", "perm+samples")
+# F10's decision, fixed before any run: 64 seeds never used before, three
+# arms a seed (the directory of each arm's logs under <out>/f10/); the
+# twogen arm draws its epochs from a second generator seeded seed + the
+# offset (10,074-10,137 meet no seed used so far, the evaluation's seed +
+# 999 included); two means differ when apart by more than F10_SE_LIMIT
+# pooled SE (2 sqrt(s_a^2 / n_a + s_b^2 / n_b)); the seed spreads' F test
+# opens F11 below F10_SPREAD_P
+F10_FRESH_SEEDS = tuple(range(74, 138))
+F10_ARM_DIRS = {"own": "port", "jax": "replay", "twogen": "twogen"}
+F10_FRESH_ARMS = tuple(F10_ARM_DIRS)
+F10_EPOCH_SEED_OFFSET = 10_000
+F10_SE_LIMIT = 2.0
+F10_SPREAD_P = 0.01
 R20_TOL = 0.002                # a 10M run's TEST R@20 against JAX's
 INGEST_LINES = 10_000_000      # the ingest bench's stream (the JAX record's)
 PARTS = ("reference", "precision", "parity", "two_stage", "seeds",
          "northstar", "seeds_parity", "f10_replay", "f10_seeds",
-         "f10_mixed",
+         "f10_mixed", "f10_fresh",
          "cred_parity", "cred_seeds",
          "eval_equiv", "schedule", "ingest", "sharding", "eval_breakdown",
          "scaling_terms", "sampling_costs", "scaling_projection", "summary")
@@ -321,46 +341,39 @@ def _wanted(preset: str, seed: int, only) -> bool:
 PORT_STREAMS = ("init", "perm", "samples")
 
 
-def replay(graph_path: Path, preset: str, seed: int, epochs: int, dev,
-           log_path: Path, port_streams=()) -> float:
-    """``epochs`` epochs of ``parity_run framework``'s configuration of
-    ``preset`` on the JAX trainer's streams at ``seed``: its initial
-    parameters and every epoch's draws from ``scripts/jax_streams.py``,
-    trained by ``RecTrainer.run_epoch`` on ``dev`` (each epoch's draws for
-    the next one made while the card trains); one ``Epoch NN | loss=...``
-    line an epoch, as ``fit`` logs it.  No evaluation: it does not touch
-    the training loss.  ``port_streams`` (of PORT_STREAMS) takes those
-    parts from the port's own stream instead, a ``torch.Generator`` on
-    ``dev`` seeded ``seed`` and drawn in ``fit``'s order: the initial
-    tables (``init_params``), the epoch's permutation, its positives and
-    negatives (``RecTrainer._sample_epoch``); with all three it is
-    ``fit``'s own stream.  Returns the wall seconds."""
+def replay_streams(tr, seed: int, port_streams=(), epoch_seed=None):
+    """``replay``'s streams for the trainer ``tr`` at ``seed``:
+    ``(params, key, draw)``, the initial tables and ``draw(key) ->
+    (batches, key)``, one epoch's ``(users, pos, neg, mask)`` (numpy,
+    ``(nb, batch_size)``) a call and the JAX key after it.  A part of
+    PORT_STREAMS in ``port_streams`` comes from the port's own stream, a
+    ``torch.Generator`` on the trainer's device seeded ``seed`` and drawn
+    in ``fit``'s order (the initial tables, then each epoch's
+    permutation, positives and negatives); the others from the JAX
+    trainer's (``scripts/jax_streams.py``).  ``epoch_seed`` draws the
+    port's epoch parts from a second generator seeded ``epoch_seed``
+    instead (the initial tables stay the first one's)."""
     from ..models.lightgcn import init_params, params_from_jax
-    from ..ops.adam import adam_init
     from ..ops.sampling import PopMixSampler
-    from ..train.trainer import RecTrainer
-    from ..utils.device import card_name
 
     unknown = set(port_streams) - set(PORT_STREAMS)
     if unknown:
         raise ValueError(f"unknown streams {sorted(unknown)}")
-    graph = parity_run.load_graph(graph_path)
-    cfg = parity_run.framework_config(preset, epochs, 2, seed)
-    cred = None
-    if preset in parity_run.REAL_CRED:
-        cred = np.load(Path(graph_path).parent / "cred.npy").astype(
-            np.float32)
-    t0 = time.perf_counter()
-    tr = RecTrainer(cfg, graph, cred=cred, device=dev, verbose=False)
+    ours = set(port_streams)
+    if epoch_seed is not None and not {"perm", "samples"} & ours:
+        raise ValueError("epoch_seed needs the port's perm or samples")
+    cfg, graph, dev = tr.cfg, tr.graph, tr.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     init, key = jax_streams.init_state(seed, cfg, graph.num_users,
                                        graph.num_items)
-    if "init" in port_streams:
+    if "init" in ours:
         params = init_params(gen, cfg, graph.num_users, graph.num_items)
     else:
         params = params_from_jax(init, dev)
-    opt = adam_init(params)
+    if epoch_seed is not None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(epoch_seed)
     csr = graph.user_csr("train")
     popmix = None
     if cfg.negative_sampler == "popmix":
@@ -371,20 +384,20 @@ def replay(graph_path: Path, preset: str, seed: int, epochs: int, dev,
     nb = -(-n // B)
 
     def draw(key):
-        if not {"perm", "samples"} & set(port_streams):
+        if not {"perm", "samples"} & ours:
             return jax_streams.epoch_draws(key, tr.train_users, csr, cfg,
                                            graph.num_items, popmix)
-        if {"perm", "samples"} <= set(port_streams):
+        if {"perm", "samples"} <= ours:
             return tuple(b.cpu().numpy() for b in tr.draw_epoch(gen)), key
         kperm, ksamp, key = jax_streams.split(key, 3)
-        if "perm" in port_streams:
+        if "perm" in ours:
             perm = tr.train_users[torch.randperm(
                 n, generator=gen, device=dev).cpu().numpy()]
         else:
             perm = jax_streams.permutation(kperm,
                                            tr.train_users.astype(np.int32))
         users = np.concatenate([perm, np.zeros(nb * B - n, perm.dtype)])
-        if "samples" in port_streams:
+        if "samples" in ours:
             pos, neg = (x.cpu().numpy() for x in tr._sample_epoch(
                 gen, torch.as_tensor(users, dtype=torch.int64, device=dev)))
         else:
@@ -394,12 +407,41 @@ def replay(graph_path: Path, preset: str, seed: int, epochs: int, dev,
         return tuple(np.asarray(x, np.int64).reshape(nb, B)
                      for x in (users, pos, neg)) + (mask.reshape(nb, B),), key
 
+    return params, key, draw
+
+
+def replay(graph_path: Path, preset: str, seed: int, epochs: int, dev,
+           log_path: Path, port_streams=(), epoch_seed=None) -> float:
+    """``epochs`` epochs of ``parity_run framework``'s configuration of
+    ``preset`` on the JAX trainer's streams at ``seed``: its initial
+    parameters and every epoch's draws from ``scripts/jax_streams.py``,
+    trained by ``RecTrainer.run_epoch`` on ``dev``; one ``Epoch NN |
+    loss=...`` line an epoch, as ``fit`` logs it.  No evaluation: it does
+    not touch the training loss.  ``port_streams`` and ``epoch_seed`` take
+    parts from the port's own streams (``replay_streams``); with all three
+    parts and no ``epoch_seed`` it is ``fit``'s own stream.  Returns the
+    wall seconds."""
+    from ..ops.adam import adam_init
+    from ..train.trainer import RecTrainer
+
+    graph = parity_run.load_graph(graph_path)
+    cfg = parity_run.framework_config(preset, epochs, 2, seed)
+    cred = None
+    if preset in parity_run.REAL_CRED:
+        cred = np.load(Path(graph_path).parent / "cred.npy").astype(
+            np.float32)
+    t0 = time.perf_counter()
+    tr = RecTrainer(cfg, graph, cred=cred, device=dev, verbose=False)
+    params, key, draw = replay_streams(tr, seed, port_streams, epoch_seed)
+    opt = adam_init(params)
     what = ("the JAX trainer's init and draws (scripts/jax_streams.py)"
             if not port_streams else "the port's own " + ", ".join(
                 s for s in PORT_STREAMS if s in port_streams)
             + ", the JAX trainer's " + (", ".join(
                 s for s in PORT_STREAMS if s not in port_streams) or
                 "nothing"))
+    if epoch_seed is not None:
+        what += f"; the epochs from a second generator seeded {epoch_seed}"
     log_path.parent.mkdir(parents=True, exist_ok=True)
     with open(log_path, "w") as log:
         print(f"[replay] {preset} seed {seed}: {what}, {epochs} epochs on "
@@ -417,6 +459,8 @@ def replay(graph_path: Path, preset: str, seed: int, epochs: int, dev,
     _free(dev)
     print(f"[protocol] replay {preset} s{seed}"
           + (f" ({'+'.join(port_streams)} the port's)" if port_streams
+             else "")
+          + (f" (epochs seeded {epoch_seed})" if epoch_seed is not None
              else "") + f": {wall:.1f}s", flush=True)
     return wall
 
@@ -457,6 +501,36 @@ def part_f10_mixed(out: Path, dev, only=()) -> None:
                 replay(graph, F10_PRESET, seed, SPREAD_EPOCHS, dev,
                        d / f"{F10_PRESET}_s{seed}.out",
                        port_streams=tuple(arm.split("+")))
+
+
+def _f10_log(out: Path, arm: str, dev, seed: int) -> Path:
+    return (out / "f10" / f"{F10_ARM_DIRS[arm]}_{_side(dev)}"
+            / f"{F10_PRESET}_s{seed}.out")
+
+
+def part_f10_fresh(out: Path, dev, only=()) -> None:
+    graph = _f10_graph(out, dev)
+    for seed in F10_FRESH_SEEDS:
+        if not _wanted(F10_PRESET, seed, only):
+            continue
+        log = _f10_log(out, "own", dev, seed)
+        argv = ["framework", "--graph", str(graph), "--config", F10_PRESET,
+                "--seed", str(seed), "--epochs", str(SPREAD_EPOCHS),
+                "--eval-every", "2", "--verbose", "--device", str(dev),
+                "--out", str(log.parent / "framework.jsonl")]
+        header = (f"[f10_fresh] own: parity_run {' '.join(argv[:11])} on "
+                  f"{card_name(dev) or dev.type}")
+
+        def own(argv):
+            print(header)
+            return parity_run.main(argv)
+
+        _run(out, f"f10_fresh_own_s{seed}", own, argv, dev, log_path=log)
+        replay(graph, F10_PRESET, seed, SPREAD_EPOCHS, dev,
+               _f10_log(out, "jax", dev, seed))
+        replay(graph, F10_PRESET, seed, SPREAD_EPOCHS, dev,
+               _f10_log(out, "twogen", dev, seed), port_streams=PORT_STREAMS,
+               epoch_seed=seed + F10_EPOCH_SEED_OFFSET)
 
 
 def part_cred_parity(out: Path, dev) -> None:
@@ -844,6 +918,7 @@ def summary_lines(out: Path, jax_runs: Path) -> list:
                            rel))
     lines += spread_lines(out, Path(SPREAD_JAX))
     lines += f10_lines(out, Path(SPREAD_JAX))
+    lines += fresh_lines(out, Path(SPREAD_JAX))
     lines += driver_lines(out, jax_runs)
     return lines
 
@@ -1027,6 +1102,147 @@ def mixed_lines(d: Path, seeds: list, jax: list) -> list:
             "| port's part | n | arm mean | std of the per-seed diff | "
             "mean diff | tol (2 SE) | verdict |",
             "|---|---|---|---|---|---|---|"] + rows
+
+
+def two_means(a, b) -> dict:
+    """Two independent samples of late-epoch means: ``diff`` = mean(a) -
+    mean(b), its ``limit`` F10_SE_LIMIT x sqrt(s_a^2 / n_a + s_b^2 / n_b)
+    (Welch's standard error), ``beyond`` = |diff| > limit, Welch's
+    two-sided ``p``, the spread ``ratio`` s_a / s_b and the two-sided F
+    test's ``f_p`` on it."""
+    from scipy import stats
+    ma, mb = statistics.fmean(a), statistics.fmean(b)
+    sa, sb = statistics.stdev(a), statistics.stdev(b)
+    limit = F10_SE_LIMIT * (sa ** 2 / len(a) + sb ** 2 / len(b)) ** 0.5
+    f, dfa, dfb = sa ** 2 / sb ** 2, len(a) - 1, len(b) - 1
+    return {"n": (len(a), len(b)), "mean": (ma, mb), "std": (sa, sb),
+            "diff": ma - mb, "limit": limit, "beyond": abs(ma - mb) > limit,
+            "p": float(stats.ttest_ind(a, b, equal_var=False).pvalue),
+            "ratio": sa / sb,
+            "f_p": float(min(1.0, 2 * min(stats.f.cdf(f, dfa, dfb),
+                                          stats.f.sf(f, dfa, dfb))))}
+
+
+def f10_branch(own, jax, twogen) -> str:
+    """F10's verdict on the fresh seeds (the rule fixed before any run):
+    "A" when own - jax is within its limit (not a fault); "B1" when it is
+    beyond, twogen - jax is within its own limit and own - twogen beyond
+    its own (drawing init and epochs from one generator); "B2" else (a
+    fault with no located cause)."""
+    if not two_means(own, jax)["beyond"]:
+        return "A"
+    if not two_means(twogen, jax)["beyond"] and two_means(own,
+                                                          twogen)["beyond"]:
+        return "B1"
+    return "B2"
+
+
+F10_BRANCHES = {
+    "A": "F10 is checked and is not a fault; `fit` is unchanged",
+    "B1": "F10 is a fault of drawing init and epochs from one generator: "
+          "`fit` draws its epochs from a generator of their own",
+    "B2": "F10 stays open, a measured fault with no located cause",
+}
+
+
+def fresh_lines(out: Path, jax_dir: Path) -> list:
+    """F10's decision on F10_FRESH_SEEDS: each arm's late-epoch mean a
+    seed, the comparisons of the rule (own - jax, twogen - jax, own -
+    twogen; each within F10_SE_LIMIT pooled SE), the branch, then, not
+    judged, the spread ratio s_own / s_jax with its F test (F11 opens
+    below F10_SPREAD_P) and the pooled rows over every seed from the
+    first F10 seeds on.  The jax arm is the card's replay of JAX's
+    streams: the branch is judged only when every replay row on the card
+    (``f10_lines``) passes."""
+    d = out / "f10"
+    if not (d / "twogen_h100").is_dir():
+        return []
+    arms = F10_FRESH_ARMS
+    vals = {a: [log_mean_loss(d / f"{F10_ARM_DIRS[a]}_h100" /
+                              f"{F10_PRESET}_s{s}.out")
+                for s in F10_FRESH_SEEDS] for a in arms}
+
+    def cell(v):
+        return "missing" if v is None else f"{v:.6f}"
+
+    lines = ["", f"## F10 decided: {F10_PRESET} on seeds "
+             f"{min(F10_FRESH_SEEDS)}-{max(F10_FRESH_SEEDS)} (fixed before "
+             "any run, none used before)", "",
+             f"`protocol f10_fresh`, {SPREAD_EPOCHS} epochs on the parity "
+             "graph, three arms a seed: `own` is `parity_run framework` "
+             "(`fit` on the port's own streams), `jax` the card's replay of "
+             "the JAX trainer's streams (`replay`), `twogen` the replay on "
+             "the port's streams with the initial tables from a generator "
+             "seeded with the seed and every epoch's draws from a second "
+             f"one seeded seed + {F10_EPOCH_SEED_OFFSET:,}.  A cell: the "
+             f"mean loss of the last {LOSS_WINDOW} epochs.", "",
+             "| seed | " + " | ".join(arms) + " |",
+             "|---" * (len(arms) + 1) + "|"]
+    lines += [f"| {s} | " + " | ".join(cell(vals[a][i]) for a in arms)
+              + " |" for i, s in enumerate(F10_FRESH_SEEDS)]
+    complete = {a: None not in v for a, v in vals.items()}
+    card = []
+    for p, seeds in REPLAY_SEEDS.items():
+        for seed in seeds:
+            card.append(replay_row(p, seed, "h100", d / "replay_h100" /
+                                   f"{p}_s{seed}.out",
+                                   jax_dir / f"{p}_s{seed}.out")[1])
+    rule = [("own", "jax", "primary: F10's verdict"),
+            ("twogen", "jax", "B1's second condition"),
+            ("own", "twogen", "B1's third condition")]
+    lines += ["", "| comparison | role | n | mean +/- std | mean +/- std | "
+              f"diff | limit ({F10_SE_LIMIT:g} pooled SE) | Welch p | "
+              "beyond the limit |", "|---|---|---|---|---|---|---|---|---|"]
+    for x, y, role in rule:
+        head = f"| {x} - {y} | {role} | "
+        if not (complete[x] and complete[y]):
+            lines.append(head + "| | | | | | PENDING |")
+            continue
+        t = two_means(vals[x], vals[y])
+        lines.append(
+            head + f"{t['n'][0]} / {t['n'][1]} | {t['mean'][0]:.6f} +/- "
+            f"{t['std'][0]:.6f} | {t['mean'][1]:.6f} +/- {t['std'][1]:.6f} "
+            f"| {t['diff']:+.6f} | {t['limit']:.6f} | {t['p']:.3g} | "
+            + ("yes" if t["beyond"] else "no") + " |")
+    if not all(complete.values()) or None in card:
+        branch = "PENDING"
+    elif not all(card):
+        branch = ("NOT JUDGED: a replay row fails on the card, so the "
+                  "replay does not stand for JAX")
+    else:
+        b = f10_branch(vals["own"], vals["jax"], vals["twogen"])
+        branch = f"{b}: {F10_BRANCHES[b]}"
+    lines += ["", f"**Branch: {branch}.**"]
+    if complete["own"] and complete["jax"]:
+        t = two_means(vals["own"], vals["jax"])
+        lines += ["", "Not judged: the seed spreads, s_own / s_jax "
+                  f"{t['ratio']:.3f} ({t['std'][0]:.6f} / {t['std'][1]:.6f},"
+                  f" n {t['n'][0]} / {t['n'][1]}), two-sided F test p "
+                  f"{t['f_p']:.3g}: F11 " + (
+                      "opens" if t["f_p"] < F10_SPREAD_P else
+                      "does not open") + f" (below {F10_SPREAD_P:g} it "
+                  "does)."]
+    first = spread_seeds(F10_PRESET)
+    own = ([log_mean_loss(out / "seeds" / "port_h100" /
+                          f"{F10_PRESET}_s{s}.out") for s in first]
+           + [log_mean_loss(d / "port_h100" / f"{F10_PRESET}_s{s}.out")
+              for s in F10_SEEDS] + vals["own"])
+    jax = ([log_mean_loss(jax_dir / f"{F10_PRESET}_s{s}.out")
+            for s in first]
+           + [log_mean_loss(d / "replay_h100" / f"{F10_PRESET}_s{s}.out")
+              for s in F10_SEEDS] + vals["jax"])
+    if None not in own and None not in jax:
+        t = two_means(own, jax)
+        lines += ["", f"Context, not judged: every seed from {min(first)} "
+                  f"to {max(F10_FRESH_SEEDS)} (n {t['n'][0]} / "
+                  f"{t['n'][1]}; JAX's logs at {min(first)}-{max(first)}, "
+                  "the card's replay after): own "
+                  f"{t['mean'][0]:.6f} +/- {t['std'][0]:.6f}, jax "
+                  f"{t['mean'][1]:.6f} +/- {t['std'][1]:.6f}, diff "
+                  f"{t['diff']:+.6f} against {t['limit']:.6f} (Welch p "
+                  f"{t['p']:.3g}); s_own / s_jax {t['ratio']:.3f} (F test "
+                  f"p {t['f_p']:.3g})."]
+    return lines
 
 
 def spread_seeds(preset: str) -> tuple:

@@ -265,11 +265,18 @@ Phases (each prints one line; any failure exits non-zero):
      CPU in ``runs/torch_h100/f10/jax_small.json``, and every epoch's mean
      loss within rtol 2e-6 of JAX's jitted epoch there (12 SpMM, 10 gather
      backwards and 1 Adam launch a step); then one propagate and 3 steps
-     on the graph held against the plain path.
+     on the graph held against the plain path; (b) ``protocol f10_fresh``'s
+     twogen arm on that graph, counted (``twogen_replay``): ``replay`` of
+     degree_aware's parity configuration (one step an epoch) for 20
+     epochs, the initial tables from a generator seeded 5 and the epochs
+     from a second one seeded 10,005: the tables bit-equal to
+     ``RecTrainer.init_state``'s, every epoch's draws bit-equal to
+     ``draw_epoch`` on the second generator, the logged losses finite and
+     equal to ``run_epoch``'s on them.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
 3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e), 18 (b), (c), 19
-(a)-(d), 20 (a)-(e), 21 (a)-(c) and 22) and read after it; a kernel that is not on that
+(a)-(d), 20 (a)-(e), 21 (a)-(c) and 22 (a), (b)) and read after it; a kernel that is not on that
 path must show 0 there.  It imports nothing of the JAX package.  It needs one CUDA card and
 exits non-zero without one.  A line before the card's name gives the
 command's seconds.  The line before the last holds the kernels'
@@ -777,12 +784,82 @@ def profile_split(fn, kinds, calls: int = 10) -> tuple:
     return split, count
 
 
-def spmm_profile_split(sc, d, x) -> tuple:
-    """Device ms and CUDA launches per application of each CUDA kernel one
-    application launches: the row kernel and the long rows' reduction."""
-    return profile_split(
+def graph_node_counts(dot: str, kinds: dict) -> dict:
+    """Nodes of a CUDA graph's DOT dump (cuGraphDebugDotPrint, verbose) by
+    label: a kernel node by the first of ``kinds``' name fragments in its
+    label, else "other"; any other node by its type in lower case
+    ("memset", "memcpy", ...)."""
+    import re
+    count = {}
+    for block in re.split(r'\n\s*"graph_\d+_node_\d+"\s*\[', "\n" + dot)[1:]:
+        kind = re.search(r'label="\{(\w+)', block)
+        if kind is None:
+            raise AssertionError(f"CUDA graph node without a type: "
+                                 f"{block[:200]!r}")
+        name = (next((k for k, frag in kinds.items() if frag in block),
+                     "other") if kind[1] == "KERNEL" else kind[1].lower())
+        count[name] = count.get(name, 0) + 1
+    return count
+
+
+def graph_launches(fn, kinds) -> dict:
+    """CUDA launches of one call of ``fn``, by label: the nodes of a CUDA
+    graph captured from the call (``graph_node_counts``).  Unlike the
+    profiler's records, which a window can lose, a captured graph holds
+    every kernel and memset the call puts on its stream."""
+    import ctypes
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "graph.dot"
+        # the driver's cuGraphDebugDotPrint, CU_GRAPH_DEBUG_DOT_FLAGS_VERBOSE
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphDebugDotPrint(
+            ctypes.c_void_p(g.raw_cuda_graph()), str(path).encode(),
+            ctypes.c_uint(1))
+        if rc:
+            raise AssertionError(f"cuGraphDebugDotPrint returned {rc}")
+        dot = path.read_text()
+    del g
+    count = graph_node_counts(dot, kinds)
+    if not count:
+        raise AssertionError(f"empty CUDA graph dump: {dot[:400]!r}")
+    return count
+
+
+def profile_matching(fn, kinds, want: dict, calls: int = 10,
+                     windows: int = 3):
+    """Device ms per call by CUDA kernel (``profile_split``) from the first
+    of up to ``windows`` profiler windows whose launches per call equal
+    ``want`` (the captured graph's count), else None: the profiler dropped
+    records in every window, and the device ms are not measured."""
+    for _ in range(windows):
+        split, count = profile_split(fn, kinds, calls)
+        if count == want:
+            return split
+    return None
+
+
+def spmm_profile_split(sc, d, x, want: dict):
+    """Device ms per application of each CUDA kernel one application
+    launches (the row kernel and the long rows' reduction), or None where
+    the profiler dropped records (``profile_matching``)."""
+    return profile_matching(
         lambda: sc.KERNEL(d.indptr, d.src, d.w, x, pieces=d.pieces),
-        {"long_rows": "long_rows_kernel", "rows": "rows_kernel"})
+        SEGMENT_KINDS, want)
+
+
+SEGMENT_KINDS = {"long_rows": "long_rows_kernel", "rows": "rows_kernel"}
+
+
+def spmm_graph_launches(sc, d, x) -> dict:
+    """CUDA launches of one application by CUDA kernel (captured graph)."""
+    return graph_launches(
+        lambda: sc.KERNEL(d.indptr, d.src, d.w, x, pieces=d.pieces),
+        SEGMENT_KINDS)
 
 
 def phase_slice(dev, tmp: Path) -> dict:
@@ -930,23 +1007,22 @@ def phase_slice(dev, tmp: Path) -> dict:
         entry["sweep"] = sweep_long_row_edges(sc, d, x32)
         # device time alone: back-to-back calls of a short kernel can be
         # held to the host's pace, which the events above then measure.
-        # The row kernel, and the reduction when a row is long; the
-        # profiler may drop a window's records (one window of a run on the
+        # The row kernel, and the reduction when a row is long, counted in
+        # a captured CUDA graph of one application; their device ms from
+        # the profiler, whose windows may drop records (one of a run on the
         # H100 came back empty): a window is taken again, up to three, as
-        # phase 10 does
-        for _ in range(3):
-            entry["device_split_ms"], entry["cuda_launches_by_kernel"] = \
-                spmm_profile_split(sc, d, x32)
-            entry["cuda_launches_per_application"] = sum(
-                entry["cuda_launches_by_kernel"].values())
-            if entry["cuda_launches_per_application"] == \
-                    1 + (pc.num_long > 0):
-                break
-        else:
+        # phase 10 does, else the device ms are not measured
+        entry["cuda_launches_by_kernel"] = spmm_graph_launches(sc, d, x32)
+        entry["cuda_launches_per_application"] = sum(
+            entry["cuda_launches_by_kernel"].values())
+        want = {"rows": 1, **({"long_rows": 1} if pc.num_long else {})}
+        if entry["cuda_launches_by_kernel"] != want:
             raise AssertionError(
                 f"{role}: {entry['cuda_launches_by_kernel']} CUDA launches "
                 f"an application, {pc.num_long} long rows")
-        entry["device_ms"] = sum(entry["device_split_ms"].values())
+        entry["device_split_ms"] = spmm_profile_split(sc, d, x32, want)
+        entry["device_ms"] = (None if entry["device_split_ms"] is None
+                              else sum(entry["device_split_ms"].values()))
         entry["host_us_per_call"] = host_us_per_call(
             lambda: sc.KERNEL(d.indptr, d.src, d.w, x32, pieces=pc))
         per_dir.append(entry)
@@ -967,17 +1043,20 @@ def phase_slice(dev, tmp: Path) -> dict:
     log("[phase 5] times (ms): " + "; ".join(
         f"{e['role']} (L={e['long_row_edges']}: {e['long_rows']} long rows, "
         f"{e['pieces']} pieces, {e['cuda_launches_per_application']:g} CUDA "
-        f"launches an application, profiler) kernel {e['ms']:.4f} plain "
+        f"launches an application, captured graph) kernel {e['ms']:.4f} "
+        f"plain "
         f"{e['plain_ms']:.4f} sparse.mm {e['library_ms']:.4f} bound {e['bound_ms']:.4f} "
         f"({100 * e['bound_share']:.1f}% of bound; device time "
-        f"{e['device_ms']:.4f}; wrapper host time {e['host_us_per_call']:.1f}"
+        f"{_ms(e['device_ms'])}; wrapper host time "
+        f"{e['host_us_per_call']:.1f}"
         f" us a call) | bf16 kernel "
         f"{e['bf16_ms']:.4f} plain {e['bf16_plain_ms']:.4f} bound "
         f"{e['bf16_bound_ms']:.4f} | L sweep " + ", ".join(
             f"{r['L']}: {r['ms']:.4f}" for r in e["sweep"])
         for e in per_dir)
-        + f"; K1 by CUDA kernel (profiler, ms per apply) " + ", ".join(
-            f"{k} {v:.4f}" for k, v in split.items())
+        + f"; K1 by CUDA kernel (profiler, ms per apply) " + (
+            "not measured" if split is None else ", ".join(
+                f"{k} {v:.4f}" for k, v in split.items()))
         + f"; propagate kernel {prop_ms:.3f} plain {prop_plain_ms:.3f}; "
         f"evaluate sampled {evals['sampled']:.1f} full {evals['full']:.1f}")
     return {"launches": launches, "launches_by_kernel": counts,
@@ -1788,32 +1867,34 @@ def phase_probes(dev, dirs) -> dict:
     if bad or not grid["chain_ok"]:
         raise AssertionError(f"probe results out of bound: {bad}, chain "
                              f"{grid['chain']}")
-    # CUDA launches and device ms per apply by CUDA kernel (profiler): P1,
-    # P2 and P3 one chunk_staged_kernel, and at most one other record (the
-    # counters' memset)
+    # CUDA launches per apply by CUDA kernel (a captured CUDA graph of one
+    # apply): P1, P2 and P3 one chunk_staged_kernel and at most one memset
+    # (the counters'); device ms per apply by CUDA kernel from the
+    # profiler, whose windows may drop most records (once in four runs on
+    # the H100, and all of three windows in a row twice): a window is taken
+    # again, up to three, else the device ms are not measured
     cs = import_module(f"{PKG}.ops.chunk_spmm")
     kinds = {"staged": "chunk_staged_kernel"}
-    want = {"staged": 1}
     by_kernel = {}
     for dname, d in dirs.items():
         base, win64 = wk.plan_for(d, dev), wk.plan_for(d, dev, window=64)
         for name, plan, lid in (("chunk_spmm_block", base, torch.int32),
                                 ("chunk_spmm_window", win64, torch.int32),
                                 ("chunk_spmm_i16", base, torch.int16)):
-            # the profiler may drop most of a window's records (once in
-            # four runs on the H100): a window is taken again, up to three
-            for _ in range(3):
-                split, count = profile_split(
-                    lambda: cs.chunk_spmm_blocks(plan, d["x"], lid), kinds)
-                kernels = {k: v for k, v in count.items() if k in kinds}
-                if kernels == want and count.get("other", 0) <= 1:
-                    break
-            else:
+            def apply():
+                return cs.chunk_spmm_blocks(plan, d["x"], lid)
+            count = graph_launches(apply, kinds)
+            if count.get("staged") != 1 or count.get("memset", 0) > 1 \
+                    or set(count) - {"staged", "memset"}:
                 raise AssertionError(f"{name} {dname}: CUDA launches per "
-                                     f"apply {count}, expected {want} and "
-                                     f"at most one memset")
+                                     f"apply {count}, expected one staged "
+                                     f"kernel and at most one memset")
+            # the profiler counts a memset as one "other" record
+            want = {"staged": 1, **({"other": count["memset"]}
+                                    if count.get("memset") else {})}
             by_kernel.setdefault(name, []).append(
-                {"direction": dname, "device_ms_by_kernel": split,
+                {"direction": dname,
+                 "device_ms_by_kernel": profile_matching(apply, kinds, want),
                  "cuda_launches": count})
     rows = {(r["direction"], r["variant"]): r for r in win["rows"]}
 
@@ -1832,10 +1913,15 @@ def phase_probes(dev, dirs) -> dict:
         + "; K1/K2 csr: " + line("csr") + "; torch.sparse.mm: "
         + ", ".join(f"{dn} {rows[(dn, 'csr')]['library_ms']:.4f}"
                     for dn in dirs))
-    log("[phase 10] CUDA launches per apply (profiler): " + "; ".join(
-        f"{name} {e['direction']} " + ", ".join(
-            f"{k} {v}" for k, v in e["cuda_launches"].items())
-        for name, es in by_kernel.items() for e in es))
+    log("[phase 10] CUDA launches per apply (captured graph), device ms "
+        "(profiler): " + "; ".join(
+            f"{name} {e['direction']} " + ", ".join(
+                f"{k} {v}" for k, v in e["cuda_launches"].items())
+            + " (" + ("not measured" if e["device_ms_by_kernel"] is None
+                      else ", ".join(f"{k} {v:.4f}" for k, v in
+                                     e["device_ms_by_kernel"].items()))
+            + ")"
+            for name, es in by_kernel.items() for e in es))
     return {"window_kernel": win, "kernel_grid": grid, "vmem_gather": gather,
             "launches": launches, "wall_s": wall,
             "cuda_launches_by_kernel": by_kernel}
@@ -2400,9 +2486,9 @@ def phase_serving_mesh(dev, tmp: Path, ctx: dict, res: dict) -> dict:
 
         # ---- no scatter on the path; CUDA launches per propagate ----
         auto = models["auto"]
-        # a window with the row kernel's records, taken again, up to three,
+        # a window with the row kernel's records, taken again, up to five,
         # where the profiler dropped them
-        for _ in range(3):
+        for _ in range(5):
             names = profiled_op_names(lambda: auto.propagate(params))
             if any("rows_kernel" in n for n in names):
                 break
@@ -2637,9 +2723,9 @@ MESH_STEP_ITERS = 5           # CUDA-event loop of a train step, each turn
 
 def _no_scatter(step, tag: str) -> None:
     """A profiled ``step()`` (a window holding the row kernel's records,
-    retaken up to three times) runs no stock scatter: no ``index_put_``,
+    retaken up to five times) runs no stock scatter: no ``index_put_``,
     ``index_add_`` or ``indexing_backward_kernel``."""
-    for _ in range(3):
+    for _ in range(5):
         names = profiled_op_names(step)
         if any("rows_kernel" in n for n in names):
             break
@@ -4886,6 +4972,7 @@ def phase_jax_streams(dev) -> dict:
     plain = trainer.RecTrainer(cfg.replace(spmm_backend="torch"), graph,
                                cred=cred, device=dev, verbose=False)
     held = _held_against_plain(tr, plain, "phase 22")
+    twogen = _twogen_replay(dev, graph, fx["seed"], fx["epochs"])
     log(f"[phase 22] jax_streams: {fx['preset']} on the JAX trainer's "
         f"streams, {graph.num_users} users x {graph.num_items} items, seed "
         f"{fx['seed']}, {len(losses)} epochs of {nb} steps ({wall:.1f}s): "
@@ -4895,7 +4982,81 @@ def phase_jax_streams(dev) -> dict:
         f"{fx['losses'][-1]:.7f}); launches {counts}; held against the "
         f"plain path: {_held_line({'small graph': held})}")
     return {"launches_by_kernel": counts, "wall_s": wall, "losses": losses,
-            "max_rel_loss_diff": max(rel), "held": held}
+            "max_rel_loss_diff": max(rel), "held": held, "twogen": twogen}
+
+
+def _twogen_replay(dev, graph, seed: int, epochs: int) -> dict:
+    """Phase 22 (b): ``protocol f10_fresh``'s twogen arm, counted as the
+    ``twogen_replay`` path: ``protocol.replay`` of degree_aware's parity
+    configuration on ``graph`` for ``epochs`` epochs on the port's own
+    streams, the initial tables from a generator seeded ``seed`` and the
+    epochs from a second one seeded ``seed + F10_EPOCH_SEED_OFFSET``.
+    Its streams' initial tables bit-equal to ``RecTrainer.init_state``'s,
+    every epoch's draws bit-equal to ``draw_epoch`` on a second generator,
+    and the replay's logged losses finite and equal, digit for digit, to
+    ``run_epoch`` on those tables and draws."""
+    import torch
+    from importlib import import_module
+    protocol = import_module(f"{PKG}.scripts.protocol")
+    parity_run = import_module(f"{PKG}.scripts.parity_run")
+    adam = import_module(f"{PKG}.ops.adam")
+    trainer = import_module(f"{PKG}.train.trainer")
+    epoch_seed = seed + protocol.F10_EPOCH_SEED_OFFSET
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "graph.npz"
+        np.savez_compressed(path, train_edges=graph.train_edges,
+                            val_edges=graph.val_edges,
+                            test_edges=graph.test_edges,
+                            num_users=graph.num_users,
+                            num_items=graph.num_items)
+        t = time.perf_counter()
+        reset_counts()
+        protocol.replay(path, "degree_aware", seed, epochs, dev,
+                        Path(tmp) / "twogen.out",
+                        port_streams=protocol.PORT_STREAMS,
+                        epoch_seed=epoch_seed)
+        wall = time.perf_counter() - t
+        cfg = parity_run.framework_config("degree_aware", epochs, 2, seed)
+        tr = trainer.RecTrainer(cfg, parity_run.load_graph(path), device=dev,
+                                verbose=False)
+        nb = -(-tr.train_users.size // cfg.batch_size)
+        counts = read_counts(_per_batch_counts(cfg, nb, epochs, 0),
+                             "twogen_replay path")
+        logged = [float(x) for x in protocol._EPOCH_LOSS.findall(
+            (Path(tmp) / "twogen.out").read_text())]
+    params, key, draw = protocol.replay_streams(
+        tr, seed, protocol.PORT_STREAMS, epoch_seed=epoch_seed)
+    fit_params = tr.init_state(seed)[0]
+    if params.keys() != fit_params.keys() or not all(
+            torch.equal(params[k], v) for k, v in fit_params.items()):
+        raise AssertionError("phase 22: the twogen replay's initial tables "
+                             "differ from RecTrainer.init_state's")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(epoch_seed)
+    opt = adam.adam_init(fit_params)
+    mine = []
+    for epoch in range(1, epochs + 1):
+        batches, key = draw(key)
+        want = tr.draw_epoch(gen)
+        if not all(np.array_equal(a, w.cpu().numpy())
+                   for a, w in zip(batches, want)):
+            raise AssertionError(f"phase 22: the twogen replay's epoch "
+                                 f"{epoch} draws differ from draw_epoch on "
+                                 f"a generator seeded {epoch_seed}")
+        mine.append(float(tr.run_epoch(fit_params, opt, want).mean()))
+    if len(logged) != epochs or not np.isfinite(logged).all() or \
+            [f"{x:.6f}" for x in mine] != [f"{x:.6f}" for x in logged]:
+        raise AssertionError(f"phase 22: the twogen replay's losses "
+                             f"{logged} against run_epoch's {mine}")
+    log(f"[phase 22] twogen replay: degree_aware's parity configuration on "
+        f"{graph.num_users} x {graph.num_items}, seed {seed}, epochs from a "
+        f"generator seeded {epoch_seed}, {epochs} epochs of {nb} steps "
+        f"({wall:.1f}s): initial tables bit-equal to init_state's, every "
+        f"epoch's draws bit-equal to draw_epoch's on the second generator, "
+        f"losses equal to run_epoch's on them; last {logged[-1]:.6f}; "
+        f"launches {counts}")
+    return {"launches_by_kernel": counts, "wall_s": wall, "losses": logged,
+            "epoch_seed": epoch_seed}
 
 
 def _rounded(obj):
@@ -5229,13 +5390,14 @@ def run(dev, out_path=None) -> int:
              **{k: v["launches_by_kernel"] for k, v in protocol.items()},
              **{k: v["launches_by_kernel"] for k, v in drivers.items()},
              **{k: v["launches_by_kernel"] for k, v in last.items()},
-             "jax_streams_replay": streams["launches_by_kernel"]}
+             "jax_streams_replay": streams["launches_by_kernel"],
+             "twogen_replay": streams["twogen"]["launches_by_kernel"]}
     main_paths = ("serving", "training", "cred_slas", "cred_full_graph",
                   "serving_mesh", "training_mesh", "cred_full_graph_mesh",
                   "serving_chunked", "training_chunked",
                   "cred_full_graph_chunked", "northstar",
                   "northstar_two_stage", *protocol, *drivers, *last,
-                  "jax_streams_replay")
+                  "jax_streams_replay", "twogen_replay")
     mesh_dirs = mesh["directions"]
     kernels = [{
         "name": "segment_spmm",

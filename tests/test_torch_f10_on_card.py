@@ -35,6 +35,17 @@ of F10's runs), the card's draws beside the JAX trainer's
 * the epoch's permutation (``torch.randperm`` on the card), 2,000 of them:
   how often each user lands in the first of the two batches, against the
   binomial of a uniform permutation.
+
+Across epochs under ``fit``'s one generator (its initial tables, then every
+epoch's draws, as ``RecTrainer.init_state`` and ``draw_epoch`` make them):
+how often a user's positive, and its negative, repeat from one epoch to the
+next, against the exact count and variance of independent draws from
+their laws; and the initial tables against epoch 1's draws (each user's
+mean initial row against its place in the permutation, its positive's and
+its negative's id; the mean initial rows of the items drawn against their
+expectation under the laws).  Each p > 1e-3.  Its CPU case runs on a
+150 x 80 graph for 60 epochs with the CPU's generator, and runs here
+without a card; the card's on the parity graph for 400 epochs.
 """
 
 import numpy as np
@@ -46,7 +57,8 @@ from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommend
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.graph.build import synthetic_bipartite_graph
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops import sampling
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops.adam import adam_init
-from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.scripts import jax_streams
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.models.lightgcn import ego_tables
+from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.scripts import jax_streams, parity_run
 from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.train.trainer import RecTrainer
 
 EPOCHS = 20
@@ -267,3 +279,109 @@ def test_the_cards_permutation_splits_the_batches_uniformly():
     chi = ((c - PERMS * q) ** 2 / (PERMS * q * (1 - q))).sum()
     assert _sf(chi * (n - 1) / n, n - 1) > P_MIN
 
+
+
+# the across-epoch check: a device's graph and epochs, and fit's seed
+INDEPENDENCE = {"cpu": (dict(num_users=150, num_items=80, edges_per_user=20.0,
+                             seed=3, power=0.6), 60),
+                "cuda": (PARITY_GRAPH, 400)}
+INDEPENDENCE_SEED = 7
+
+
+def _repeat_z(obs: float, a: np.ndarray, b: np.ndarray, epochs: int):
+    """p of ``obs`` lag-1 repeats over ``epochs`` iid draws a user, where
+    a user's law has sum p^2 = ``a`` and sum p^3 = ``b``: the count's exact
+    mean and variance (neighbouring pairs share a draw), two-sided normal
+    tail."""
+    mean = (epochs - 1) * a.sum()
+    var = ((epochs - 1) * (a - a ** 2) + 2 * (epochs - 2) * (b - a ** 2)).sum()
+    return float(2 * stats.norm.sf(abs(obs - mean) / np.sqrt(var)))
+
+
+def _law_z(got: np.ndarray, mean: np.ndarray, var: np.ndarray) -> float:
+    """p of the sum of one value a user, each with its mean and variance
+    under the draws' laws, two-sided normal tail."""
+    return float(2 * stats.norm.sf(abs((got - mean).sum())
+                                   / np.sqrt(var.sum())))
+
+
+def _independence(dev: str) -> dict:
+    """The p values of the across-epoch check on ``dev``."""
+    spec, epochs = INDEPENDENCE[dev]
+    graph = synthetic_bipartite_graph(**spec)
+    cfg = parity_run.framework_config("degree_aware", epochs, 2,
+                                      INDEPENDENCE_SEED)
+    tr = RecTrainer(cfg, graph, device=dev, verbose=False)
+    params, _, gen = tr.init_state(INDEPENDENCE_SEED)
+    U, I = graph.num_users, graph.num_items
+    users = tr.train_users
+    csr = graph.user_csr("train")
+    rows = [csr.indices[csr.indptr[u]:csr.indptr[u + 1]] for u in users]
+    # the positive's law: uniform over the row's slots
+    pos_p = [np.unique(r, return_counts=True)[1] / r.size for r in rows]
+    a_pos = np.array([(p ** 2).sum() for p in pos_p])
+    b_pos = np.array([(p ** 3).sum() for p in pos_p])
+    # the uniform negative's: the first of neg_rounds uniform candidates
+    # not in the row, else one more unchecked
+    m = np.array([np.unique(r).size for r in rows], np.float64)
+    tail = (m / I) ** cfg.neg_rounds
+    p_in = tail / I
+    p_out = (1 - tail) / (I - m) + tail / I
+    a_neg = (I - m) * p_out ** 2 + m * p_in ** 2
+    b_neg = (I - m) * p_out ** 3 + m * p_in ** 3
+    live = torch.as_tensor(users, device=dev)
+    last = None
+    repeats = np.zeros(2)
+    for epoch in range(epochs):
+        u, pos, neg, mask = (x.reshape(-1) for x in tr.draw_epoch(gen))
+        u, pos, neg = u[mask], pos[mask], neg[mask]
+        by_user = torch.full((2, U), -1, dtype=torch.int64, device=dev)
+        by_user[0, u] = pos
+        by_user[1, u] = neg
+        by_user = by_user[:, live]
+        if last is None:
+            place = torch.empty(U, dtype=torch.float64, device=dev)
+            place[u] = torch.arange(u.numel(), dtype=torch.float64,
+                                    device=dev)
+            first = (place[live].cpu().numpy(), by_user.cpu().numpy())
+        else:
+            repeats += (by_user == last).sum(1).cpu().numpy()
+        last = by_user
+    user_emb, item_emb = (t.double().mean(1).cpu().numpy()
+                          for t in ego_tables(params, U))
+    x = user_emb[users]
+    place, (pos1, neg1) = first
+    y_rows = [item_emb[r] for r in rows]
+    y_all = item_emb.sum()
+    y_in = np.array([item_emb[np.unique(r)].sum() for r in rows])
+    y2_in = np.array([(item_emb[np.unique(r)] ** 2).sum() for r in rows])
+    neg_mean = p_out * (y_all - y_in) + p_in * y_in
+    neg_var = (p_out * ((item_emb ** 2).sum() - y2_in) + p_in * y2_in
+               - neg_mean ** 2)
+    return {
+        "positive repeats": _repeat_z(repeats[0], a_pos, b_pos, epochs),
+        "negative repeats": _repeat_z(repeats[1], a_neg, b_neg, epochs),
+        "user row vs place": float(stats.pearsonr(x, place).pvalue),
+        "user row vs positive": float(stats.pearsonr(x, pos1).pvalue),
+        "user row vs negative": float(stats.pearsonr(x, neg1).pvalue),
+        "positive's item row": _law_z(item_emb[pos1],
+                                      np.array([y.mean() for y in y_rows]),
+                                      np.array([y.var() for y in y_rows])),
+        "negative's item row": _law_z(item_emb[neg1], neg_mean, neg_var),
+    }
+
+
+@pytest.mark.parametrize("dev", ["cpu",
+                                 pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_fits_generator_draws_independently_across_epochs(dev):
+    if dev == "cuda":
+        _card()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ps = _independence(dev)
+    finally:
+        torch.set_num_threads(n)
+    print(f"[independence] {dev}: " + ", ".join(
+        f"{k} p {v:.3g}" for k, v in ps.items()))
+    assert min(ps.values()) > P_MIN, ps

@@ -466,3 +466,176 @@ def test_replay_on_the_ports_streams_is_fit(tmp_path, capsys):
         protocol.replay(graph, "degree_aware", 42, 1, cpu, tmp_path / "x",
                         port_streams=("eval",))
 
+
+
+def _small_trainer(tmp_path, seed=42):
+    from test_torch_parity_run import SMALL
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.train.trainer import RecTrainer
+    graph = tmp_path / "f10" / "parity_graph.npz"
+    with contextlib.redirect_stdout(io.StringIO()):
+        parity_run.main(["build", "--out", str(graph), *SMALL])
+    cfg = parity_run.framework_config("degree_aware", 2, 2, seed)
+    return graph, RecTrainer(cfg, parity_run.load_graph(graph),
+                             device="cpu", verbose=False)
+
+
+def test_twogen_streams_are_fits_init_and_a_second_generator(tmp_path):
+    """The twogen arm's streams: the initial tables bit-equal to
+    ``RecTrainer.init_state(seed)``'s, the first two epochs' draws
+    bit-equal to ``draw_epoch`` on a generator seeded seed +
+    F10_EPOCH_SEED_OFFSET; without ``epoch_seed`` the epochs continue
+    ``fit``'s one generator after the initial tables."""
+    _, tr = _small_trainer(tmp_path)
+    seed = 42
+    assert protocol.F10_EPOCH_SEED_OFFSET == 10_000
+    fit_params, _, fit_gen = tr.init_state(seed)
+    second = torch.Generator()
+    second.manual_seed(seed + protocol.F10_EPOCH_SEED_OFFSET)
+    for epoch_seed, gen in ((seed + protocol.F10_EPOCH_SEED_OFFSET, second),
+                            (None, fit_gen)):
+        params, key, draw = protocol.replay_streams(
+            tr, seed, protocol.PORT_STREAMS, epoch_seed=epoch_seed)
+        assert params.keys() == fit_params.keys()
+        for k, v in params.items():
+            assert torch.equal(v, fit_params[k]), k
+        for _ in range(2):
+            batches, key = draw(key)
+            want = tr.draw_epoch(gen)
+            assert len(batches) == len(want) == 4
+            for got, w in zip(batches, want):
+                assert np.array_equal(got, w.numpy())
+    with pytest.raises(ValueError, match="epoch_seed"):
+        protocol.replay_streams(tr, seed, ("init",), epoch_seed=1)
+
+
+def test_f10_fresh_part_writes_three_arms(tmp_path, monkeypatch):
+    """``protocol f10_fresh`` on the CPU at a tiny size, one seed: the own
+    arm's log (``fit``, a header naming the device), the replay of JAX's
+    streams and the twogen replay, each with its epoch lines; the twogen
+    log is the loop of ``run_epoch`` on ``fit``'s initial tables and the
+    second generator's draws, digit for digit."""
+    from beyond_binary_fake_user_detection_a_credibility_aware_graph_based_recommender_system_tpu_torch.ops.adam import adam_init
+    graph, tr = _small_trainer(tmp_path, seed=74)
+    epochs = 2
+    monkeypatch.setattr(protocol, "SPREAD_EPOCHS", epochs)
+    with contextlib.redirect_stdout(io.StringIO()):
+        protocol.main(["f10_fresh", "--out", str(tmp_path), "--device",
+                       "cpu", "--only", "degree_aware:74"])
+    d = tmp_path / "f10"
+    assert sorted(p.name for p in d.iterdir() if p.is_dir()) == [
+        "port_cpu", "replay_cpu", "twogen_cpu"]
+    own = (d / "port_cpu" / "degree_aware_s74.out").read_text()
+    assert own.startswith("[f10_fresh] own: parity_run framework --graph ")
+    assert own.splitlines()[0].endswith("--eval-every 2 on cpu")
+    logs = {a: protocol._EPOCH_LOSS.findall(
+        (d / f"{a}_cpu" / "degree_aware_s74.out").read_text())
+        for a in ("port", "replay", "twogen")}
+    assert all(len(v) == epochs for v in logs.values())
+    assert not (d / "port_cpu" / "degree_aware_s75.out").exists()
+    params, opt, _ = tr.init_state(74)
+    opt = adam_init(params)
+    gen = torch.Generator()
+    gen.manual_seed(74 + protocol.F10_EPOCH_SEED_OFFSET)
+    mine = [f"{float(tr.run_epoch(params, opt, tr.draw_epoch(gen)).mean()):.6f}"
+            for _ in range(epochs)]
+    assert logs["twogen"] == mine
+    assert logs["twogen"] != logs["port"]
+
+
+def _fresh_logs(out, arm, means):
+    d = out / "f10" / f"{protocol.F10_ARM_DIRS[arm]}_h100"
+    d.mkdir(parents=True, exist_ok=True)
+    for s, m in zip(protocol.F10_FRESH_SEEDS, means):
+        _log(d / f"degree_aware_s{s}.out", [0.5] * 4 + [m] * 4)
+
+
+FRESH_JAX = [0.2000, 0.2010, 0.1990, 0.2005, 0.1995, 0.2000]
+FRESH_BRANCHES = {
+    # own - jax within its limit
+    "A": dict(own=[0.2003, 0.2012, 0.1994, 0.2006, 0.1999, 0.2001],
+              twogen=[0.2001, 0.2009, 0.1991, 0.2004, 0.1996, 0.2002]),
+    # own beyond jax, twogen within jax, own beyond twogen
+    "B1": dict(own=[0.2030, 0.2041, 0.2019, 0.2036, 0.2025, 0.2031],
+               twogen=[0.2001, 0.2009, 0.1991, 0.2004, 0.1996, 0.2002]),
+    # own beyond jax, twogen beyond jax too
+    "B2": dict(own=[0.2030, 0.2041, 0.2019, 0.2036, 0.2025, 0.2031],
+               twogen=[0.2028, 0.2039, 0.2020, 0.2033, 0.2026, 0.2030]),
+}
+
+
+@pytest.mark.parametrize("branch", sorted(FRESH_BRANCHES))
+def test_summary_fresh_rows_follow_the_rule(tmp_path, monkeypatch, branch):
+    """F10's decision on synthetic logs (six seeds, 8 epochs, means of the
+    last 4): the rows own - jax, twogen - jax and own - twogen with 2
+    pooled SE (Welch's standard error, held against ``scipy.stats``), the
+    branch the fixed rule gives, the spread's two-sided F test, PENDING
+    while a seed is missing; seeds 42-73 enter no verdict."""
+    from scipy import stats
+    monkeypatch.setattr(protocol, "SPREAD_EPOCHS", 8)
+    monkeypatch.setattr(protocol, "LOSS_WINDOW", 4)
+    monkeypatch.setattr(protocol, "REPLAY_SEEDS", {"degree_aware": (42,)})
+    monkeypatch.setattr(protocol, "F10_FRESH_SEEDS", tuple(range(74, 80)))
+    jax_dir = tmp_path / "jax"
+    _f10_logs(jax_dir, "degree_aware", (42,), lambda s: [0.3] * 8)
+    _f10_logs(tmp_path / "f10" / "replay_h100", "degree_aware", (42,),
+              lambda s: [0.3] * 8)
+    assert protocol.fresh_lines(tmp_path, jax_dir) == []
+    arms = dict(FRESH_BRANCHES[branch], jax=FRESH_JAX)
+    for arm, means in arms.items():
+        _fresh_logs(tmp_path, arm, means)
+    lines = protocol.fresh_lines(tmp_path, jax_dir)
+    assert "| 74 | 0.500000 | " not in lines   # the last 4 epochs' means
+    assert f"| 74 | {arms['own'][0]:.6f} | {arms['jax'][0]:.6f} | " \
+           f"{arms['twogen'][0]:.6f} |" in lines
+    rows = {ln.split("|")[1].strip(): ln for ln in lines
+            if ln.startswith("| own - ") or ln.startswith("| twogen - ")}
+    beyond = {}
+    for x, y in (("own", "jax"), ("twogen", "jax"), ("own", "twogen")):
+        a, b = np.array(arms[x]), np.array(arms[y])
+        t = stats.ttest_ind(a, b, equal_var=False)
+        diff = a.mean() - b.mean()
+        se = diff / t.statistic                  # Welch's standard error
+        assert se == pytest.approx(np.sqrt(a.var(ddof=1) / 6
+                                           + b.var(ddof=1) / 6), rel=1e-9)
+        got = protocol.two_means(list(a), list(b))
+        assert got["limit"] == pytest.approx(2 * se, rel=1e-9)
+        assert got["p"] == pytest.approx(t.pvalue, rel=1e-9)
+        beyond[x, y] = abs(diff) > 2 * se
+        assert rows[f"{x} - {y}"].endswith(
+            f"| {diff:+.6f} | {2 * se:.6f} | {t.pvalue:.3g} | "
+            + ("yes" if beyond[x, y] else "no") + " |")
+    want = ("A" if not beyond["own", "jax"] else "B1"
+            if not beyond["twogen", "jax"] and beyond["own", "twogen"]
+            else "B2")
+    assert want == branch
+    assert f"**Branch: {branch}: {protocol.F10_BRANCHES[branch]}.**" in lines
+    # the spread's F test, two-sided
+    f = np.var(arms["own"], ddof=1) / np.var(FRESH_JAX, ddof=1)
+    p = 2 * min(stats.f.cdf(f, 5, 5), stats.f.sf(f, 5, 5))
+    assert protocol.two_means(arms["own"], FRESH_JAX)["f_p"] == \
+        pytest.approx(p, rel=1e-9)
+    spread = [ln for ln in lines if ln.startswith("Not judged: ")][0]
+    assert f"F test p {p:.3g}: F11 " + (
+        "opens" if p < 0.01 else "does not open") in spread
+    # seeds 42-73 are context only: without them no pooled row, the same
+    # branch
+    assert not [ln for ln in lines if ln.startswith("Context")]
+    # a missing seed leaves the branch pending
+    (tmp_path / "f10" / "twogen_h100" / "degree_aware_s79.out").unlink()
+    lines = protocol.fresh_lines(tmp_path, jax_dir)
+    assert "**Branch: PENDING.**" in lines
+    assert [ln for ln in lines if ln.startswith("| twogen - jax")][0] \
+        .endswith("| PENDING |")
+
+
+def test_fresh_constants_are_the_fixed_design():
+    assert protocol.F10_FRESH_SEEDS == tuple(range(74, 138))
+    assert len(protocol.F10_FRESH_SEEDS) == 64
+    assert not set(protocol.F10_FRESH_SEEDS) & (
+        set(protocol.spread_seeds("degree_aware")) | set(protocol.F10_SEEDS))
+    assert protocol.F10_FRESH_ARMS == ("own", "jax", "twogen")
+    assert protocol.F10_SE_LIMIT == 2.0 and protocol.F10_SPREAD_P == 0.01
+    epoch_seeds = {s + protocol.F10_EPOCH_SEED_OFFSET
+                   for s in protocol.F10_FRESH_SEEDS}
+    used = set(range(42, 138)) | {s + 999 for s in range(42, 138)}
+    assert not epoch_seeds & used
