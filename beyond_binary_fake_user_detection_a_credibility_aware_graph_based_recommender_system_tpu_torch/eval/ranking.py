@@ -29,6 +29,7 @@ import torch
 from ..graph.build import BipartiteGraph
 from ..ops.sampling import (DeviceCSR, row_contains, sample_candidate_set,
                             sample_positives)
+from ..utils.profiling import span
 from .metrics import (cred_groups, item_popularity, novelty_stats,
                       sampled_rank_metrics, topk_metrics)
 from .retrieval import (exact_fp32_matmul, exclusion_rows_for_users,
@@ -100,14 +101,20 @@ class EvalContext:
         return users
 
 
+def _batch_at(users: np.ndarray, s: int, batch: int, device):
+    """(padded_batch_device, padded_batch_host, num_valid) of the batch of
+    ``users`` that starts at ``s``."""
+    chunk = users[s:s + batch]
+    n = chunk.size
+    if n < batch:
+        chunk = np.concatenate([chunk, np.zeros(batch - n, np.int64)])
+    return torch.as_tensor(chunk, dtype=torch.int64, device=device), chunk, n
+
+
 def _batched(users: np.ndarray, batch: int, device):
     """Yield (padded_batch_device, padded_batch_host, num_valid)."""
     for s in range(0, users.size, batch):
-        chunk = users[s:s + batch]
-        n = chunk.size
-        if n < batch:
-            chunk = np.concatenate([chunk, np.zeros(batch - n, np.int64)])
-        yield torch.as_tensor(chunk, dtype=torch.int64, device=device), chunk, n
+        yield _batch_at(users, s, batch, device)
 
 
 def rejection_rounds(max_degree: int, num_items: int) -> int:
@@ -173,11 +180,16 @@ def _full_batch(user_emb, item_emb, users, excl_rows, test_csr: DeviceCSR,
     """``excl_rows``: (B, Pb) per-batch train-item rows (pad = num_items).
     ``score_dtype="bf16"``: bf16 tables, scores summed, masked and ranked
     in fp32 (``retrieval.score_product``)."""
-    scores = score_product(user_emb[users], item_emb, score_dtype)  # (B, I)
-    scores = mask_excluded(scores, excl_rows, -1e9)
-    _, topk_items = torch.topk(scores, max(Ks), dim=1)
-    return _full_metrics_from_topk(topk_items, users, test_csr, item_pop,
-                                   Ks, extended, total_train, num_items)
+    with span("rec.rank.score"):
+        scores = score_product(user_emb[users], item_emb,
+                               score_dtype)                     # (B, I)
+    with span("rec.rank.mask"):
+        scores = mask_excluded(scores, excl_rows, -1e9)
+    with span("rec.rank.topk"):
+        _, topk_items = torch.topk(scores, max(Ks), dim=1)
+    with span("rec.eval.metrics"):
+        return _full_metrics_from_topk(topk_items, users, test_csr, item_pop,
+                                       Ks, extended, total_train, num_items)
 
 
 class _Accumulator:
@@ -337,23 +349,28 @@ def evaluate_full(user_emb: torch.Tensor, item_emb: torch.Tensor,
     eval_csr = ctx.split_csr(split)
     acc = _Accumulator(Ks, extended, num_items=ctx.graph.num_items)
     item_pop = ctx.item_pop_dev if extended else None
-    for bu, bu_host, n_valid in _batched(users, batch, ctx.device):
-        excl = torch.as_tensor(ctx.train_exclusion_rows(bu_host),
-                               device=ctx.device)
-        if mesh is not None:
-            _, top = topk_for_users(user_emb, item_emb, bu, max(Ks),
-                                    exclude_batch_rows=excl, mesh=mesh,
-                                    topk_method=topk,
-                                    score_dtype=score_dtype)
-            per_user, topk_items, logpop, selfinfo = _full_metrics_from_topk(
-                top, bu, eval_csr, item_pop, tuple(Ks), extended,
-                ctx.total_train, ctx.graph.num_items)
-        else:
-            per_user, topk_items, logpop, selfinfo = _full_batch(
-                user_emb, item_emb, bu, excl, eval_csr, item_pop, tuple(Ks),
-                extended, ctx.total_train, ctx.graph.num_items,
-                score_dtype=score_dtype)
-        acc.add(per_user, n_valid, topk_items if extended else None, logpop,
-                selfinfo)
-    return acc.results("full", ctx.graph.num_items, users, cred,
-                       cred_group_pct, None)
+    for s in range(0, users.size, batch):
+        with span("rec.eval.batch"):
+            bu, bu_host, n_valid = _batch_at(users, s, batch, ctx.device)
+            excl = torch.as_tensor(ctx.train_exclusion_rows(bu_host),
+                                   device=ctx.device)
+            if mesh is not None:
+                _, top = topk_for_users(user_emb, item_emb, bu, max(Ks),
+                                        exclude_batch_rows=excl, mesh=mesh,
+                                        topk_method=topk,
+                                        score_dtype=score_dtype)
+                per_user, topk_items, logpop, selfinfo = \
+                    _full_metrics_from_topk(top, bu, eval_csr, item_pop,
+                                            tuple(Ks), extended,
+                                            ctx.total_train,
+                                            ctx.graph.num_items)
+            else:
+                per_user, topk_items, logpop, selfinfo = _full_batch(
+                    user_emb, item_emb, bu, excl, eval_csr, item_pop,
+                    tuple(Ks), extended, ctx.total_train,
+                    ctx.graph.num_items, score_dtype=score_dtype)
+            acc.add(per_user, n_valid, topk_items if extended else None,
+                    logpop, selfinfo)
+    with span("rec.eval.finalize"):
+        return acc.results("full", ctx.graph.num_items, users, cred,
+                           cred_group_pct, None)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..graph.build import BipartiteGraph
+from ..utils.profiling import span
 
 
 def exact_fp32_matmul() -> None:
@@ -71,19 +72,20 @@ def exclusion_rows_for_users(graph: BipartiteGraph, users: np.ndarray,
                              split: str = "train") -> np.ndarray:
     """(B, Pb) seen-item rows for ONE user batch, padded with num_items;
     the width is the batch's max degree rounded up to a power of two."""
-    csr = graph.user_csr(split)
-    users = np.asarray(users, np.int64)
-    deg = (csr.indptr[users + 1] - csr.indptr[users]).astype(np.int64)
-    pmax = int(deg.max()) if deg.size else 1
-    pb = 1 << max(int(np.ceil(np.log2(max(pmax, 1)))), 0)
-    if csr.indices.shape[0] == 0:
-        return np.full((users.shape[0], pb), graph.num_items, np.int32)
-    offs = np.arange(pb, dtype=np.int64)[None, :]
-    valid = offs < deg[:, None]
-    flat = np.minimum(csr.indptr[users][:, None] + offs,
-                      csr.indices.shape[0] - 1)
-    return np.where(valid, csr.indices[flat],
-                    graph.num_items).astype(np.int32)
+    with span("rec.rank.exclusions"):
+        csr = graph.user_csr(split)
+        users = np.asarray(users, np.int64)
+        deg = (csr.indptr[users + 1] - csr.indptr[users]).astype(np.int64)
+        pmax = int(deg.max()) if deg.size else 1
+        pb = 1 << max(int(np.ceil(np.log2(max(pmax, 1)))), 0)
+        if csr.indices.shape[0] == 0:
+            return np.full((users.shape[0], pb), graph.num_items, np.int32)
+        offs = np.arange(pb, dtype=np.int64)[None, :]
+        valid = offs < deg[:, None]
+        flat = np.minimum(csr.indptr[users][:, None] + offs,
+                          csr.indices.shape[0] - 1)
+        return np.where(valid, csr.indices[flat],
+                        graph.num_items).astype(np.int32)
 
 
 def mask_excluded(scores: torch.Tensor, excl: torch.Tensor,
@@ -118,7 +120,6 @@ def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
     than ``lax.top_k``'s.
     """
     exact_fp32_matmul()
-    u = user_emb[users]
     if exclude_batch_rows is not None:
         excl = exclude_batch_rows
     else:
@@ -126,9 +127,14 @@ def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
     if mesh is not None:
         from ..parallel.sharded_topk import ShardedTopK
         st = ShardedTopK(mesh, item_emb.shape[0])
-        return st.topk(u, st.pad_items(item_emb), k, exclude=excl,
-                       method=topk_method, score_dtype=score_dtype)
-    scores = u @ item_emb.T                                   # (B, I)
-    if excl is not None:
-        scores = mask_excluded(scores, excl, float("-inf"))
-    return torch.topk(scores, k, dim=1)
+        return st.topk(user_emb[users], st.pad_items(item_emb), k,
+                       exclude=excl, method=topk_method,
+                       score_dtype=score_dtype)
+    with span("rec.rank.topk_for_users"):
+        with span("rec.rank.score"):
+            scores = user_emb[users] @ item_emb.T             # (B, I)
+        if excl is not None:
+            with span("rec.rank.mask"):
+                scores = mask_excluded(scores, excl, float("-inf"))
+        with span("rec.rank.topk"):
+            return torch.topk(scores, k, dim=1)

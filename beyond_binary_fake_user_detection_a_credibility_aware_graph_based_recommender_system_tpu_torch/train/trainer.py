@@ -55,6 +55,7 @@ from ..ops.sampling import (PopMixSampler, sample_negatives_popmix,
                             sample_negatives_uniform, sample_positives)
 from ..utils.config import RecConfig, kernel_backend
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .checkpoint import TrainCheckpointer, save_params_npz
 
 Batches = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -254,14 +255,17 @@ class RecTrainer:
         """One vectorized positive and negative draw for every batch of the
         epoch (each user's samples are iid either way)."""
         csr = self.ctx.train_csr
-        pos = sample_positives(gen, csr, users_flat)
-        if self.popmix is not None:
-            neg = sample_negatives_popmix(gen, csr, users_flat, self.popmix,
-                                          rounds=self.cfg.neg_rounds)
-        else:
-            neg = sample_negatives_uniform(gen, csr, users_flat,
-                                           self.graph.num_items,
-                                           rounds=self.cfg.neg_rounds)
+        with span("rec.train.sample_positives"):
+            pos = sample_positives(gen, csr, users_flat)
+        with span("rec.train.sample_negatives"):
+            if self.popmix is not None:
+                neg = sample_negatives_popmix(gen, csr, users_flat,
+                                              self.popmix,
+                                              rounds=self.cfg.neg_rounds)
+            else:
+                neg = sample_negatives_uniform(gen, csr, users_flat,
+                                               self.graph.num_items,
+                                               rounds=self.cfg.neg_rounds)
         return pos, neg
 
     def draw_epoch(self, gen: torch.Generator) -> Batches:
@@ -273,13 +277,16 @@ class RecTrainer:
         B = self.cfg.batch_size
         n = self.train_users.size
         nb = -(-n // B)
-        perm = self.train_users_dev[torch.randperm(n, generator=gen,
-                                                   device=self.device)]
-        pad = torch.zeros(nb * B - n, dtype=torch.int64, device=self.device)
-        users_flat = torch.cat([perm, pad])
-        pos, neg = self._sample_epoch(gen, users_flat)
-        mask = torch.arange(nb * B, device=self.device) < n
-        return tuple(x.reshape(nb, B) for x in (users_flat, pos, neg, mask))
+        with span("rec.train.draw"):
+            perm = self.train_users_dev[torch.randperm(n, generator=gen,
+                                                       device=self.device)]
+            pad = torch.zeros(nb * B - n, dtype=torch.int64,
+                              device=self.device)
+            users_flat = torch.cat([perm, pad])
+            pos, neg = self._sample_epoch(gen, users_flat)
+            mask = torch.arange(nb * B, device=self.device) < n
+            return tuple(x.reshape(nb, B)
+                         for x in (users_flat, pos, neg, mask))
 
     # ------------------------------------------------------------------
     def step_plans(self, users: torch.Tensor, pos: torch.Tensor,
@@ -350,8 +357,8 @@ class RecTrainer:
         gathered blocks ``params``)."""
         if self.cfg.propagation_schedule != "per_epoch":
             return None
-        params = self._trim(params)
-        with torch.no_grad():
+        with span("rec.train.epoch_cache"), torch.no_grad():
+            params = self._trim(params)
             user_emb, item_emb = self.model.propagate(params)
             ego_u, ego_i = ego_tables(params, self.graph.num_users)
             scale = 1.0 / (self.cfg.num_layers + 1)
@@ -371,18 +378,22 @@ class RecTrainer:
         whole batch's (``parallel/sharding.py``)."""
         if plans is None:
             plans = self.step_plans(users[None], pos[None], neg[None])[0]
-        with deterministic_algorithms():
-            if self.mesh is not None:
+        if self.mesh is not None:
+            with deterministic_algorithms():
                 return self._sharded_step(params, opt_state, users, pos, neg,
                                           mask, cached_rest, plans, count)
+        with span("rec.train.step"), deterministic_algorithms():
             leaves = {k: p.detach().requires_grad_() for k, p in
                       params.items()}
-            loss = self._loss_fn(leaves, users, pos, neg, mask, cached_rest,
-                                 plans, count)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-            adam_step(params, dict(zip(leaves, grads)), opt_state,
-                      self.cfg.lr, backend=self._kernels)
-        return loss.detach()
+            with span("rec.train.forward"):
+                loss = self._loss_fn(leaves, users, pos, neg, mask,
+                                     cached_rest, plans, count)
+            with span("rec.train.backward"):
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            with span("rec.train.adam"):
+                adam_step(params, dict(zip(leaves, grads)), opt_state,
+                          self.cfg.lr, backend=self._kernels)
+            return loss.detach()
 
     def run_epoch(self, params: Params, opt_state: AdamState,
                   batches: Batches) -> torch.Tensor:
@@ -400,7 +411,8 @@ class RecTrainer:
                          (self._data_axis.coord + 1) * n)
             batches = tuple(x[:, cols].contiguous() for x in batches)
         users_all, pos_all, neg_all, mask_all = batches
-        plans = self.step_plans(users_all, pos_all, neg_all)
+        with span("rec.train.plans"):
+            plans = self.step_plans(users_all, pos_all, neg_all)
         cached = self._epoch_cache(params)
         return torch.stack([
             self.train_step(params, opt_state, users_all[s], pos_all[s],
@@ -420,7 +432,8 @@ class RecTrainer:
         cfg = self.cfg
         extended = cfg.extended_metrics if extended is None else extended
         params = {k: v.to(self.device) for k, v in params.items()}
-        user_emb, item_emb = self.model.propagate(params)
+        with span("rec.eval.propagate"):
+            user_emb, item_emb = self.model.propagate(params)
         if cfg.eval_mode == "full":
             return evaluate_full(user_emb, item_emb, self.ctx, split,
                                  Ks=cfg.Ks, batch=cfg.eval_batch,

@@ -1,10 +1,13 @@
 """Tracing and timing utilities (``JAX: utils/profiling.py``).
 
+  * ``span(name)``: a named host range inside the port, recorded only while
+    a ``torch.profiler`` profile runs, on the profiler's own clock, so a
+    gap on the card's timeline can be put down to the part of the program
+    the host was in (:data:`SPANS` lists them);
   * ``trace(log_dir)``: a context manager around ``torch.profiler.profile``
-    that writes a Chrome trace of the host and, on a card, of the device's
-    kernels into ``log_dir``;
-  * ``Throughput``: rolling edges/sec and steps/sec counters (propagation
-    edges/sec is the north-star metric);
+    that writes a Chrome trace of the host (the spans included) and, on a
+    card, of the device's kernels into ``log_dir``;
+  * ``Throughput``: rolling edges/sec and steps/sec counters;
   * ``time_fn``: warmed-up wall-clock seconds a call, fenced with
     ``torch.cuda.synchronize`` when the call's output lies on a card.
 """
@@ -18,6 +21,53 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_PREFIX = "rec."
+# every span of the port, by layer; a name holds no ids, so the spans of
+# one step, batch or request are told apart by their enclosing span
+SPANS = (
+    # trainer and samplers (train/trainer.py)
+    "rec.train.draw",               # draw_epoch: the permutation, the samples
+    "rec.train.sample_positives",   # inside rec.train.draw
+    "rec.train.sample_negatives",   # inside rec.train.draw
+    "rec.train.plans",              # run_epoch's gather plans of every step
+    "rec.train.epoch_cache",        # per_epoch: the epoch's propagation
+    # one train step on one device (train_step)
+    "rec.train.step",
+    "rec.train.forward",            # the loss
+    "rec.train.backward",           # torch.autograd.grad
+    "rec.train.adam",               # the fused Adam update
+    # ranking (eval/retrieval.py, eval/ranking.py)
+    "rec.rank.exclusions",          # a batch's train-item rows, numpy
+    "rec.rank.topk_for_users",      # a request on one device
+    "rec.rank.score",               # the score product
+    "rec.rank.mask",                # the train items set to a floor
+    "rec.rank.topk",                # torch.topk
+    # a full evaluation (RecTrainer.evaluate, eval/ranking.evaluate_full)
+    "rec.eval.propagate",
+    "rec.eval.batch",               # one batch, ids to accumulation
+    "rec.eval.metrics",             # the batch's metrics from its top-k
+    "rec.eval.finalize",            # the one copy to the host and the sums
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the enclosed block as the host range
+    ``name`` (one of :data:`SPANS`) while a ``torch.profiler`` profile runs.
+
+    With no profile running it returns one shared no-op object after a
+    single flag read, so a span costs ~0.5 us on the hot path.  Under a
+    profile the range is an operator record on the host only: unlike
+    ``torch.profiler.record_function``, whose user annotations the profiler
+    mirrors onto the card's timeline, it adds no record to the device's.
+    A span never synchronises, allocates or changes a result."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
@@ -25,7 +75,12 @@ def trace(log_dir: str, host_profiling: bool = False):
     """Profile the enclosed block and write its Chrome trace into
     ``log_dir`` (``trace_<pid>_<ns>.json``).  The card's kernels are traced
     when one is present; ``host_profiling`` adds the host operators' shapes
-    and call stacks."""
+    and call stacks.  The host rows hold the port's spans (:data:`SPANS`)
+    around what the block runs: ``fit``'s draws, plans, epoch cache and
+    steps (forward, backward, Adam), ``evaluate``'s propagation, batches
+    (exclusions, score, mask, top-k, metrics) and final sums, and
+    ``topk_for_users``'s score, mask and top-k; a gap in the card's row
+    lies under the span the host was in."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -70,11 +125,16 @@ def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 3) -> float:
 
 @dataclass
 class Throughput:
-    """Rolling throughput counters.
+    """Rolling throughput counters: steps/sec, and ``edges_per_step`` times
+    it.
 
-    ``edges_per_step`` should count propagation edge traversals
-    (E * layers * directions * fwd/bwd) so the reported number is the
-    roofline-comparable edges/sec/chip.
+    ``edges_per_step`` is whatever count the caller gives a step (the
+    port's ``bench.py`` passes E * layers * directions * fwd/bwd, as JAX's
+    does).  That rate is not the north-star metric and measures no cost
+    the port pays: a per_epoch step propagates nothing (the epoch's
+    propagation is cached), so it is no roofline share either.  The
+    benchmark's ``train_samples_per_s`` and ``train_step_mfu`` are what a
+    step is judged by.
     """
 
     edges_per_step: int
