@@ -12,8 +12,9 @@ Protocol parity:
     train items (lightgcn.py:415-430), drawn from a dedicated eval
     generator (the reference's ``seed+999`` stream, lightgcn.py:406).
   * full mode: all-item scores with the user's train items masked to -1e9
-    (lightgcn.py:477-490), top-K ranking with the exact ``torch.topk``
-    (``topk="approx"`` ranks exactly too: the TPU's approx_max_k has no
+    (lightgcn.py:477-490), top-K ranking with the exact
+    ``ops/topk_select.topk_select`` (``lax.top_k``'s order for equal scores;
+    ``topk="approx"`` ranks exactly too: the TPU's approx_max_k has no
     counterpart here); ``score_dtype="bf16"`` scores bf16 tables with fp32
     sums, as the TPU kept them, and ranks in fp32.
 """
@@ -29,6 +30,7 @@ import torch
 from ..graph.build import BipartiteGraph
 from ..ops.sampling import (DeviceCSR, row_contains, sample_candidate_set,
                             sample_positives)
+from ..ops.topk_select import topk_select
 from ..utils.profiling import span
 from .metrics import (cred_groups, item_popularity, novelty_stats,
                       sampled_rank_metrics, topk_metrics)
@@ -186,7 +188,7 @@ def _full_batch(user_emb, item_emb, users, excl_rows, test_csr: DeviceCSR,
     with span("rec.rank.mask"):
         scores = mask_excluded(scores, excl_rows, -1e9)
     with span("rec.rank.topk"):
-        _, topk_items = torch.topk(scores, max(Ks), dim=1)
+        _, topk_items = topk_select(scores, max(Ks))
     with span("rec.eval.metrics"):
         return _full_metrics_from_topk(topk_items, users, test_csr, item_pop,
                                        Ks, extended, total_train, num_items)
@@ -335,10 +337,11 @@ def evaluate_full(user_emb: torch.Tensor, item_emb: torch.Tensor,
                   topk: str = "exact",
                   score_dtype: str = "fp32") -> Dict[int, Dict[str, float]]:
     """Full-catalog masked ranking (reference lightgcn.py:459-509).
-    ``topk`` "exact" and "approx" both rank with the exact torch.topk.
-    With ``mesh`` (a ``DeviceMesh``) the ranking runs row-sharded over its
-    model axis with a distributed merge; every rank returns the same
-    metrics."""
+    ``topk`` "exact" and "approx" both rank exactly: on one device with
+    ``topk_select`` (equal scores in ``lax.top_k``'s order).  With ``mesh``
+    (a ``DeviceMesh``) the ranking runs row-sharded over its model axis with
+    a distributed merge, in its own order for equal scores; every rank
+    returns the same metrics."""
     if topk not in ("exact", "approx"):
         raise ValueError(f"unknown topk {topk!r}")
     exact_fp32_matmul()

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..graph.build import BipartiteGraph
+from ..ops.topk_select import topk_select
 from ..utils.profiling import span
 
 
@@ -116,8 +117,9 @@ def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
     call: it holds no more than the group and the block size, and a cached
     one could outlive its group when a process makes meshes in turn);
     ``topk_method`` / ``score_dtype`` are its per-shard modes, which the
-    single-device branch ignores.  Ties may come back in another order
-    than ``lax.top_k``'s.
+    single-device branch ignores.  On one device the top-k is
+    ``topk_select``'s, equal scores in ``lax.top_k``'s order (the lower id
+    first); on a mesh ties may come back in another order.
     """
     exact_fp32_matmul()
     if exclude_batch_rows is not None:
@@ -137,4 +139,4 @@ def topk_for_users(user_emb: torch.Tensor, item_emb: torch.Tensor,
             with span("rec.rank.mask"):
                 scores = mask_excluded(scores, excl, float("-inf"))
         with span("rec.rank.topk"):
-            return torch.topk(scores, k, dim=1)
+            return topk_select(scores, k)

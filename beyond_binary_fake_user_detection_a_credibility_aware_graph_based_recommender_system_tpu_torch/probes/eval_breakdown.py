@@ -11,7 +11,8 @@ evaluation runs them:
   h2d              their copy to the card with the user ids
   scores           the (B, D) @ (D, I) product (``torch.matmul``, fp32)
   exclusion        the scatter of -1e9 into the excluded slots
-  topk_full        full-width ``torch.topk`` (the shipped ranking)
+  topk_full        full-width ``torch.topk`` (the library's ranking; the
+                   shipped one, ``ops/topk_select``, runs in full_batch)
   topk_chunked     a top-k in each of ``--chunks`` column chunks, then the
                    merge of their C*K candidates
   scores_bf16      the product on bf16 tables with fp32 sums, as the bf16

@@ -11,7 +11,7 @@ graph (500,000 users, 1,000,000 items, 20 a user, 16 x 16 clusters):
 and, on the exact arm's best parameters, each arm's per-user top-20 SET
 overlap (mean Jaccard@20) against the exact ranking, and that of bf16
 tables scored in fp32 (the bf16 mode without rounding each score to bf16).
-The port ranks "approx" with the exact ``torch.topk`` (the TPU's
+The port ranks "approx" with the exact ``topk_select`` (the TPU's
 approx_max_k has no counterpart here), so the approx arm equals the exact
 arm by construction; the bf16 arm is the one that tests something.
 
@@ -185,7 +185,7 @@ def report_lines(d: Path, jax_dir: Path) -> list:
              "graph: the port", "",
              f"Port records `{d}/` ({', '.join(cards) or 'no card recorded'});"
              f" JAX records `{jax_dir}/` (TPU; walls are context, no "
-             "target).  The port's approx ranks exactly (`torch.topk`), so "
+             "target).  The port's approx ranks exactly (`topk_select`), so "
              "its approx arm equals its exact arm by construction; bf16 "
              f"scores are the arm under test.  Tolerance: TEST R@20 within "
              f"{R20_TOL} of JAX's; bf16 mean Jaccard@20 >= {JACCARD_MIN}.", ""]

@@ -53,6 +53,7 @@ from ..ops.adam import AdamState, adam_init, adam_step
 from ..ops.gather import GatherPlan, gather_plans, gather_rows
 from ..ops.sampling import (PopMixSampler, sample_negatives_popmix,
                             sample_negatives_uniform, sample_positives)
+from ..ops.topk_select_cuda import MAX_K as TOPK_MAX_K
 from ..utils.config import RecConfig, kernel_backend
 from ..utils.device import resolve_device
 from ..utils.profiling import span
@@ -149,8 +150,15 @@ class RecTrainer:
         data axis) on this rank's blocks of the parameters, and
         full-catalogue evaluation ranks through the distributed top-k.
         ``operator_factory(edge_map)`` builds the model's operators in place
-        of either default."""
+        of either default.  A full evaluation on one device takes
+        ``max(cfg.Ks)`` up to ``ops/topk_select_cuda.MAX_K`` (256), on any
+        device, so that a configuration that runs here runs on the card."""
         cfg.validate()
+        if cfg.eval_mode == "full" and mesh is None \
+                and max(cfg.Ks) > TOPK_MAX_K:
+            raise ValueError(f"Ks = {cfg.Ks}: a full evaluation on one "
+                             f"device ranks with ops/topk_select, which "
+                             f"takes k up to {TOPK_MAX_K}")
         self.cfg = cfg
         self.graph = graph
         self.device = resolve_device(device)

@@ -159,7 +159,7 @@ class RecConfig(ConfigBase):
     eval_every: int = 1
     eval_mode: str = "sampled"        # "sampled" | "full"
     # full-catalog ranking op: "exact" and "approx" both rank with the
-    # exact torch.topk here.  The JAX package maps "approx" to the TPU's
+    # exact ops/topk_select here.  The JAX package maps "approx" to the TPU's
     # lax.approx_max_k; the port keeps the value so that presets and saved
     # configs load unchanged (a deliberate divergence, ROADMAP.md Queue 3).
     eval_topk: str = "exact"

@@ -44,7 +44,7 @@ SPANS = (
     "rec.rank.topk_for_users",      # a request on one device
     "rec.rank.score",               # the score product
     "rec.rank.mask",                # the train items set to a floor
-    "rec.rank.topk",                # torch.topk
+    "rec.rank.topk",                # ops/topk_select
     # a full evaluation (RecTrainer.evaluate, eval/ranking.evaluate_full)
     "rec.eval.propagate",
     "rec.eval.batch",               # one batch, ids to accumulation

@@ -6,8 +6,9 @@
 Phases (each prints one line; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi), and the kernels' builds
      from ``csrc/segment_spmm.cu``, ``csrc/fused_adam.cu``,
-     ``csrc/chunk_spmm.cu`` and ``csrc/row_gather.cu`` (one nvcc per
-     source, for sm_90a, started together);
+     ``csrc/chunk_spmm.cu``, ``csrc/row_gather.cu`` and
+     ``csrc/topk_select.cu`` (one nvcc per source, for sm_90a, started
+     together);
   2. the SpMM kernel against its plain PyTorch version on the card: random
      edges, empty rows, duplicate edges, a zero-edge operator and a Zipf hub
      graph, with long rows cut at LONG_ROW_EDGES and at 8 edges, at D in
@@ -33,8 +34,9 @@ Phases (each prints one line; any failure exits non-zero):
   3. the serving slice at full width: the reference-scale graph
      (58,867 users, 261,728 items), the cu_message preset (D=64, K=3), the
      CLI's merge-user-ids, then evaluate --split test in sampled and full
-     mode, then topk_for_users for 512 users at k=20; the kernel's launch
-     counter must show 6 launches per propagate;
+     mode, then topk_for_users for 512 users at k=20; the launch counters
+     must show 6 SpMM launches per propagate, and one top-k select a batch
+     of the full evaluation plus one for topk_for_users;
   4. the same parameters through the plain path (spmm_backend=torch) on the
      card: propagated tables, metrics and top-20 sets must agree;
   5. times (CUDA events) of each operator direction through the kernel, the
@@ -181,7 +183,8 @@ Phases (each prints one line; any failure exits non-zero):
      ``scaled_10m`` (D=128, K=4, batch 8,192, per_epoch), counted as the
      ``northstar`` path: ``bench_northstar`` (8 ``segment_spmm`` a
      propagate; an epoch 8 for its cache, then 4 ``gather_backward`` and 1
-     ``fused_adam`` a step) and one full evaluate on val (8 more); held
+     ``fused_adam`` a step) and one full evaluate on val (8 more, and one
+     ``topk_select`` a batch of 512); held
      against the plain path on the card: propagated tables (rtol 1e-5 /
      atol 1e-6), 3 steps (phase 7's tolerances), the top-20 of 4,096 val
      users (Jaccard >= 0.99), no stock scatter in a profiled step; times:
@@ -205,7 +208,8 @@ Phases (each prints one line; any failure exits non-zero):
      ``card``, finite test metrics, each preset's launches as the trainer's
      code gives them; (b) ``parity_run build`` at its defaults,
      ``framework`` on the seven configurations (seed 0, 4 epochs, val every
-     2) and ``--fast`` on cu_message (``parity_framework``), then ``report``
+     2) and ``--fast`` on cu_message (``parity_framework``; its full
+     evaluations one ``topk_select`` a batch), then ``report``
      against the committed oracle records: a row a configuration and
      metric, each with a verdict; (c) ``two_stage_demo.run`` on phase 11's
      JSONL with ``--pad-deg 128``, Stage A 1 epoch (1 ``fused_adam`` a
@@ -231,22 +235,26 @@ Phases (each prints one line; any failure exits non-zero):
      oracle vector: its rows and verdict line; (b) on phase 18's planted
      graph, ``schedule_compare`` with ``per_batch`` for 1 epoch
      (``schedule_compare``: 16 SpMM, 12 gather backwards and 1 Adam a
-     step), the JAX record's keys, then one propagate and 3 ``per_batch``
+     step, one ``topk_select`` a batch of its full evaluations), the JAX
+     record's keys, then one propagate and 3 ``per_batch``
      steps held against ``spmm_backend="torch"`` on the card (phase 7's
      tolerances); (c) ``eval_equiv_r4 overlap`` in all three modes on
      4,096 val users, on (b)'s kernel trainer after one epoch
-     (``eval_equiv``: one propagate): approx equal to exact, bf16 mean
+     (``eval_equiv``: one propagate, one ``topk_select`` a batch of 512 in
+     each mode): approx equal to exact, bf16 mean
      Jaccard@20 >= 0.9; (d) ``ingest_bench`` on phase 11's JSONL: every line
      kept, no kernel launched; (e) ``eval_breakdown`` for 2 batches of 512
      val users over the 1,000,000 items: every part timed, chunked top-k
-     sets equal to full-width ones, no kernel launched.
+     sets equal to full-width ones, no kernel launched but the top-k
+     select of its two ``_full_batch`` calls a batch.
  21. the last three modules (``probes/scaling_terms.py``,
      ``probes/sampling_costs.py``, ``scripts/scaling_projection.py``) in
      process, each counted as its own path: (a) the scaling terms on phase
      18's trainer and graph at one timed call a loop (``scaling_terms``: a
      propagate 8 ``segment_spmm``; an epoch 8 for its cache, then 4
      ``gather_backward`` and 1 ``fused_adam`` a step; each loop one untimed
-     call first; the evaluation's two calls a propagate each): the JAX
+     call first; the evaluation's two calls a propagate and a top-k
+     select a batch each): the JAX
      record's keys, finite positive terms, scan_steps_s = epoch_s -
      propagate_s, the JAX record's ``config``; (b) the sampler probe at 3
      timed calls over JAX's catalogues and the north star's
@@ -273,6 +281,17 @@ Phases (each prints one line; any failure exits non-zero):
      ``RecTrainer.init_state``'s, every epoch's draws bit-equal to
      ``draw_epoch`` on the second generator, the logged losses finite and
      equal to ``run_epoch``'s on them.
+ 23. the top-k select (``csrc/topk_select.cu``, through
+     ``ops/topk_select.topk_select``) on the cells' own masked score
+     matrices, tables propagated from ``init_state(0)``: 512 test users'
+     bf16 scores over phase 18's 1,000,000 items (train items at -1e9),
+     and 256 and 1,024 users' fp32 scores over the reference-scale graph's
+     261,728 items (train items at -inf); ids and value bits equal to the
+     plain version's (a stable sort), one counted call and two CUDA
+     launches a call (a captured graph); its ms, device ms by kernel,
+     bound, the plain version's and torch.topk's ms, and the share of
+     scores that entered a thread queue.  The paths of phases 3-22 count
+     its launches with every other kernel's.
 
 Every kernel's launch counter is set to 0 before each counted path (phases
 3, 6, 10, 11, 12, 15, 16 (b), (c), 17 (a), (d), (e), 18 (b), (c), 19
@@ -374,9 +393,19 @@ def kernel_counters() -> dict:
     launches in ``launches``."""
     from importlib import import_module
     mods = [import_module(f"{PKG}.ops.{m}") for m in
-            ("spmm_cuda", "adam_cuda", "chunk_spmm_cuda", "row_gather_cuda")]
+            ("spmm_cuda", "adam_cuda", "chunk_spmm_cuda", "row_gather_cuda",
+             "topk_select_cuda")]
     return {k.name: k for m in mods
             for k in getattr(m, "KERNELS", None) or (m.KERNEL,)}
+
+
+def full_eval_calls(graph, split: str, batch: int = 512) -> int:
+    """``topk_select`` calls of one single-device full evaluation of
+    ``split`` (``eval/ranking.evaluate_full``): one a batch of the split's
+    users, the batch clamped as ``evaluate_full`` clamps it."""
+    n = int((graph.user_csr(split).degrees() > 0).sum())
+    batch = min(batch, 1 << max(int(n - 1).bit_length(), 0))
+    return -(-n // batch)
 
 
 def reset_counts() -> None:
@@ -914,8 +943,11 @@ def phase_slice(dev, tmp: Path) -> dict:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t1
     n_prop = 3
-    # 6 SpMM launches per propagate; no other kernel is on this path
-    counts = read_counts({"segment_spmm": 6 * n_prop}, "serving path")
+    # 6 SpMM launches per propagate; one top-k select a batch of the full
+    # evaluation and one for topk_for_users; no other kernel is on this path
+    n_topk = full_eval_calls(graph, "test") + 1
+    counts = read_counts({"segment_spmm": 6 * n_prop, "topk_select": n_topk},
+                         "serving path")
     launches = counts["segment_spmm"]
     for K in res_f:
         for r in (res_s[K], res_f[K]):
@@ -933,7 +965,8 @@ def phase_slice(dev, tmp: Path) -> dict:
         f"D={cfg.emb_dim} K={cfg.num_layers}): sampled R@20="
         f"{res_s[20]['recall']:.6f} full R@20={res_f[20]['recall']:.6f} "
         f"users={res_f[20]['users_eval']}; topk_for_users 512x20 ok; kernel "
-        f"launches {launches} = 6 x {n_prop} propagates; setup "
+        f"launches {launches} = 6 x {n_prop} propagates, topk_select "
+        f"{counts['topk_select']} = {n_topk - 1} batches + 1; setup "
         f"{setup_s:.1f}s, path {main_s:.1f}s")
 
     # ---- phase 4: the plain path on the card ----
@@ -1851,10 +1884,11 @@ def phase_probes(dev, dirs) -> dict:
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernel_counters().items()}
     # every SpMM and slab-gather kernel runs here; the Adam kernel, the
-    # training gathers' backward and the mesh's local sums do not
+    # training gathers' backward, the mesh's local sums and the top-k
+    # select do not
     idle = [name for name, n in launches.items()
             if (n == 0) != (name in ("fused_adam", "gather_backward",
-                                     "sharded_spmm"))]
+                                     "sharded_spmm", "topk_select"))]
     if idle:
         raise AssertionError(f"probe path launches {launches}: wrong for "
                              f"{idle}")
@@ -2467,7 +2501,8 @@ def phase_serving_mesh(dev, tmp: Path, ctx: dict, res: dict) -> dict:
         path_s = time.perf_counter() - t0
         n_prop = 2 + len(MESH_MODES)
         # 2K local sums per propagate (the exchange is a collective, not a
-        # kernel of the package); no other kernel is on this path
+        # kernel of the package); the mesh ranks with its own top-k, not
+        # topk_select; no other kernel is on this path
         counts = read_counts({"sharded_spmm": 2 * K * n_prop},
                              "serving mesh path")
         for mode, (u, i) in tables.items():
@@ -3159,7 +3194,11 @@ def phase_chunked_serving(dev, tmp: Path, ctx: dict, res: dict) -> dict:
     if m._padded_chain() is None:
         raise AssertionError("the chunked operators' padded chain is off")
     per_prop = _times(_chunk_launches(ifu.fwd, ufi.fwd), K)
-    counts = read_counts(_times(per_prop, 3), "serving_chunked path")
+    # and one top-k select a batch of the full evaluation, one for
+    # topk_for_users
+    counts = read_counts({**_times(per_prop, 3), "topk_select":
+                          full_eval_calls(graph, "test") + 1},
+                         "serving_chunked path")
     if not (_close(u_c, u_csr) and _close(i_c, i_csr)):
         raise AssertionError("chunked tables differ from the CSR kernel's")
     tab_err = max(float((u_c - u_csr).abs().max()),
@@ -3745,11 +3784,14 @@ def phase_northstar(dev, graph) -> dict:
     eval_s = time.perf_counter() - t
     # a propagation: 2K SpMM; an epoch: its cache's propagation, then nb
     # steps of 4 gather backwards and one Adam launch; each loop runs
-    # one call untimed first; the evaluate: one propagation
+    # one call untimed first; the evaluate: one propagation and a top-k
+    # select a batch
     counts = read_counts(
         {"segment_spmm": 2 * K * (1 + it) * 2 + 2 * K,
          "gather_backward": NORTHSTAR_GATHERS * nb * (1 + it),
-         "fused_adam": nb * (1 + it)}, "northstar path")
+         "fused_adam": nb * (1 + it),
+         "topk_select": full_eval_calls(graph, "val", cfg.eval_batch)},
+        "northstar path")
     missing = [k for k in JAX_NORTHSTAR_KEYS if k not in line]
     E = graph.train_edges.shape[1]
     if missing or line["metric"] != \
@@ -3968,12 +4010,14 @@ def phase_northstar_two_stage(dev, graph, tmp: Path) -> dict:
     nb = -(-n_b // cfg_b.batch_size)
     K = cfg_b.num_layers
     # Stage A: one Adam launch a step and nothing else; Stage B: an epoch's
-    # cache (2K SpMM), 4 gathers and 1 Adam a step, 2K SpMM an evaluation
-    # (val each epoch, test once)
+    # cache (2K SpMM), 4 gathers and 1 Adam a step, 2K SpMM and a top-k
+    # select a batch an evaluation (val each epoch, test once)
     counts = read_counts(
         {"segment_spmm": 2 * K * (2 * ep_b + 1),
          "gather_backward": NORTHSTAR_GATHERS * nb * ep_b,
-         "fused_adam": steps_a * ep_a + nb * ep_b},
+         "fused_adam": steps_a * ep_a + nb * ep_b,
+         "topk_select": ep_b * full_eval_calls(graph, "val", cfg_b.eval_batch)
+         + full_eval_calls(graph, "test", cfg_b.eval_batch)},
         "northstar two-stage path")
     scores = np.load(out / "credibility_scores_minmax.npy")
     if scores.shape != (graph.num_users,) or not np.isfinite(scores).all() \
@@ -4227,6 +4271,7 @@ def phase_parity(dev, tmp: Path) -> dict:
     z = np.load(graph_path)
     n_train = int(np.unique(z["train_edges"][0]).size)
     evals = PARITY_EPOCHS // PARITY_EVAL_EVERY + 1
+    g = pr.load_graph(graph_path)
     want, recs = {}, []
     for name, fast in [(c, False) for c in pr.CONFIG_MAP] \
             + [("cu_message", True)]:
@@ -4242,9 +4287,13 @@ def phase_parity(dev, tmp: Path) -> dict:
             # per_epoch: a cache propagate an epoch, no SpMM in a step,
             # the two batch-row and two ego gathers
             P = _applies(cfg)
+            # and the full evaluation's top-k select a batch
             c = {"segment_spmm": P * (PARITY_EPOCHS + evals),
                  "gather_backward": NORTHSTAR_GATHERS * steps * PARITY_EPOCHS,
-                 "fused_adam": steps * PARITY_EPOCHS}
+                 "fused_adam": steps * PARITY_EPOCHS,
+                 "topk_select": (evals - 1) * full_eval_calls(
+                     g, "val", cfg.eval_batch)
+                 + full_eval_calls(g, "test", cfg.eval_batch)}
         else:
             c = _per_batch_counts(cfg, steps, PARITY_EPOCHS, evals)
         before = _counts_now()
@@ -4616,7 +4665,10 @@ def phase_eval_equiv(dev, graph, tmp: Path, params: dict) -> dict:
                       str(d), "--device", str(dev)], graph=graph)
     t_overlap = time.perf_counter() - t
     (d / "params_exact.npz").unlink()
-    counts = read_counts({"segment_spmm": _applies(ee.make_cfg("exact"))},
+    # a propagation, then each mode's _full_batch: a top-k select a batch
+    counts = read_counts({"segment_spmm": _applies(ee.make_cfg("exact")),
+                          "topk_select": len(ee.MODES)
+                          * -(-EQUIV_USERS // TOPK_BATCH)},
                          "eval_equiv path")
     a, b = ov["jaccard_approx_vs_exact"], ov["jaccard_bf16_vs_exact"]
     if ov["n_users"] != EQUIV_USERS or a["frac_identical"] != 1.0 \
@@ -4660,8 +4712,12 @@ def phase_schedule_compare(dev, graph, tmp: Path) -> dict:
                        "--out", str(tmp / "schedule_compare.json"),
                        "--device", str(dev)], graph=graph)
     wall = time.perf_counter() - t
-    counts = read_counts(_per_batch_counts(cfg, nb, SCHEDULE_EPOCHS,
-                                           SCHEDULE_EPOCHS + 1),
+    # and the full evaluation's top-k select a batch (val every epoch, test)
+    counts = read_counts({**_per_batch_counts(cfg, nb, SCHEDULE_EPOCHS,
+                                              SCHEDULE_EPOCHS + 1),
+                          "topk_select": SCHEDULE_EPOCHS * full_eval_calls(
+                              graph, "val", cfg.eval_batch)
+                          + full_eval_calls(graph, "test", cfg.eval_batch)},
                          "schedule_compare path")
     jax = json.loads((root / "runs" / "schedule_compare.json").read_text())
     written = json.loads((tmp / "schedule_compare.json").read_text())
@@ -4718,7 +4774,8 @@ def phase_ingest_bench(dev, tmp: Path, jsonl: Path) -> dict:
 def phase_eval_breakdown(dev, graph, tmp: Path) -> dict:
     """Phase 20 (e): ``probes/eval_breakdown`` for BREAKDOWN_BATCHES
     batches on phase 18's planted graph: every part timed, the chunked
-    top-k sets equal to the full-width ones, no kernel launched."""
+    top-k sets equal to the full-width ones, no kernel launched but the
+    top-k select of its two ``_full_batch`` calls a batch."""
     import io
     from importlib import import_module
     eb = import_module(f"{PKG}.probes.eval_breakdown")
@@ -4727,7 +4784,7 @@ def phase_eval_breakdown(dev, graph, tmp: Path) -> dict:
         rec = eb.main(["--batches", str(BREAKDOWN_BATCHES), "--out",
                        str(tmp / "eval_breakdown.json"), "--device",
                        str(dev)], graph=graph)
-    read_counts({}, "eval_breakdown")
+    read_counts({"topk_select": 2 * BREAKDOWN_BATCHES}, "eval_breakdown")
     ms = rec["ms_per_batch"]
     if set(ms) != set(eb.PARTS) or min(rec["sets_agree_min"].values()) < 1.0 \
             or not all(np.isfinite(v) and v >= 0 for v in ms.values()):
@@ -4756,7 +4813,7 @@ def phase_scaling_terms(dev, tr, tmp: Path) -> dict:
     path: each loop runs one untimed call first; a propagate 2K
     ``segment_spmm``, an epoch 2K for its cache then 4 ``gather_backward``
     and 1 ``fused_adam`` a step, the evaluation's two calls a propagate
-    each.  The JAX record's keys plus ``card``, ``iters`` and ``clock``;
+    and a top-k select a batch each.  The JAX record's keys plus ``card``, ``iters`` and ``clock``;
     finite positive terms, scan_steps_s = epoch_s - propagate_s, and a
     ``config`` the projection accepts."""
     import io
@@ -4776,7 +4833,10 @@ def phase_scaling_terms(dev, tr, tmp: Path) -> dict:
     n = TERMS_ITERS + 1
     counts = read_counts({"segment_spmm": 2 * K * (2 * n + 2),
                           "gather_backward": NORTHSTAR_GATHERS * nb * n,
-                          "fused_adam": nb * n}, "scaling_terms path")
+                          "fused_adam": nb * n,
+                          "topk_select": 2 * full_eval_calls(
+                              tr.ctx.graph, "val", tr.cfg.eval_batch)},
+                         "scaling_terms path")
     jax = json.loads((root / "runs" / "scaling_terms.json").read_text())
     terms = [rec[k] for k in ("propagate_s", "epoch_s", "eval_epoch_s")]
     if set(rec) != set(jax) | {"card", "iters", "clock"} \
@@ -5059,6 +5119,122 @@ def _twogen_replay(dev, graph, seed: int, epochs: int) -> dict:
             "epoch_seed": epoch_seed}
 
 
+# --------------------------------------------------------------------------
+# phase 23: the top-k select kernel (csrc/topk_select.cu)
+# --------------------------------------------------------------------------
+
+REPLACES_TOPK = ("no Pallas kernel: torch.topk on the single-device ranking "
+                 "path (eval/ranking.py _full_batch, eval/retrieval.py "
+                 "topk_for_users); the JAX package ranks with XLA's lax.top_k "
+                 "(eval/ranking.py:203)")
+TOPK_KINDS = {"chunks": "topk_select_chunks_kernel",
+              "merge": "topk_select_merge_kernel"}
+TOPK_K = 20
+TOPK_EVAL_USERS = 512             # scaled_10m's evaluation batch
+TOPK_SERVE_USERS = (256, 1024)    # the serve cell's smallest and largest
+
+
+def _topk_row(tag: str, scores, ts, tc, timing) -> dict:
+    """The kernel on one score matrix: ids and value bits equal to the
+    plain version's, one counted call and two CUDA launches a call (a
+    captured graph); its ms (CUDA events), device ms by kernel (profiler;
+    None where every window lost records), the plain version's and
+    torch.topk's ms, the bound (every score read once at 3.35 TB/s), the
+    share of scores that entered a thread queue, and the measured max
+    |values - plain values| and whether the ids equal the plain ones."""
+    import torch
+    rows, cols = scores.shape
+    before = tc.KERNEL.launches
+    values, ids, inserted = ts.topk_select(scores, TOPK_K, count=True)
+    rv, ri = ts.topk_select_reference(scores, TOPK_K)
+    ids_equal = bool(torch.equal(ids, ri))
+    bits_equal = bool(torch.equal(values.view(torch.int32),
+                                  rv.view(torch.int32)))
+    max_abs_err = float(torch.where(values == rv, 0.0,
+                                    (values - rv).abs()).max())
+    if not (ids_equal and bits_equal):
+        raise AssertionError(f"{tag}: topk_select differs from its plain "
+                             f"version (ids equal {ids_equal}, max abs err "
+                             f"{max_abs_err:.3g})")
+    if tc.KERNEL.launches != before + 1:
+        raise AssertionError(f"{tag}: {tc.KERNEL.launches - before} counted "
+                             f"calls for one")
+    del values, ids, rv, ri
+
+    def call():
+        return ts.topk_select(scores, TOPK_K)
+    launches = graph_launches(call, TOPK_KINDS)
+    if launches != {"chunks": 1, "merge": 1}:
+        raise AssertionError(f"{tag}: CUDA launches a call {launches}")
+    split = profile_matching(call, TOPK_KINDS, launches)
+    return {"shape": tag, "rows": rows, "cols": cols, "k": TOPK_K,
+            "chunks": tc.chunks_for(rows, cols,
+                                    tc.sm_count(scores.device.index)),
+            "ms": cuda_time_ms(call, 20),
+            "device_ms": None if split is None else sum(split.values()),
+            "device_ms_by_kernel": split,
+            "plain_ms": cuda_time_ms(
+                lambda: ts.topk_select_reference(scores, TOPK_K), 3),
+            "library_ms": cuda_time_ms(
+                lambda: torch.topk(scores, TOPK_K, dim=1), 20),
+            "bound_ms": timing.bound_ms(rows * cols * 4, 0),
+            "engaged_share": inserted / (rows * cols),
+            "max_abs_err": max_abs_err, "ids_equal": ids_equal,
+            "cuda_launches_per_call": launches}
+
+
+def phase_topk_select(dev, ns_graph) -> dict:
+    """Phase 23: the top-k select on the two cells' own masked score
+    matrices: (a) ``scaled_10m``'s evaluation batch, 512 test users' bf16
+    scores over the planted graph's 1,000,000 items, train items at -1e9;
+    (b) the serve cell's requests, 256 and 1,024 users' fp32 scores over
+    the reference-scale graph's 261,728 items, train items at -inf; both on
+    tables propagated from ``init_state(0)``.  Each through ``_topk_row``."""
+    import torch
+    from importlib import import_module
+    bench = import_module(f"{PKG}.bench")
+    build = import_module(f"{PKG}.graph.build")
+    presets = import_module(f"{PKG}.configs.presets")
+    trainer_mod = import_module(f"{PKG}.train.trainer")
+    retrieval = import_module(f"{PKG}.eval.retrieval")
+    ts = import_module(f"{PKG}.ops.topk_select")
+    tc = import_module(f"{PKG}.ops.topk_select_cuda")
+    timing = import_module(f"{PKG}.probes._timing")
+    rows = []
+    graph = build.synthetic_bipartite_graph(**GRAPH)
+    cases = [("eval", lambda: bench.northstar_trainer(ns_graph, dev), ns_graph,
+              (TOPK_EVAL_USERS,), -1e9),
+             ("serve", lambda: trainer_mod.RecTrainer(
+                 presets.get_preset("cu_message"), graph, device=dev,
+                 verbose=False), graph, TOPK_SERVE_USERS, float("-inf"))]
+    for cell, make_trainer, g, sizes, masked in cases:
+        tr = make_trainer()
+        with torch.no_grad():
+            user_emb, item_emb = tr.model.propagate(tr.init_state(0)[0])
+        test = tr.ctx.users_of("test")
+        for n in sizes:
+            users = test[:n]
+            scores = retrieval.score_product(
+                user_emb[torch.as_tensor(users, device=dev)], item_emb,
+                tr.cfg.eval_score_dtype if cell == "eval" else "fp32")
+            excl = torch.as_tensor(retrieval.exclusion_rows_for_users(
+                g, users), device=dev)
+            retrieval.mask_excluded(scores, excl, masked)
+            rows.append({"cell": cell, **_topk_row(
+                f"{cell} {n} x {g.num_items:,}", scores, ts, tc, timing)})
+            del scores, excl
+        del tr, user_emb, item_emb
+        torch.cuda.empty_cache()
+    for r in rows:
+        log(f"[phase 23] topk_select {r['shape']} k={r['k']} chunks "
+            f"{r['chunks']}: {r['ms']:.4f} ms, device "
+            f"{_ms(r['device_ms'])} ({r['device_ms_by_kernel']}), bound "
+            f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}, torch.topk "
+            f"{r['library_ms']:.4f}; engaged {100 * r['engaged_share']:.3f}%;"
+            f" max abs err {r['max_abs_err']:g}, ids equal {r['ids_equal']}")
+    return {"rows": rows}
+
+
 def _rounded(obj):
     """``obj`` with every float to 6 significant digits, for the kernels'
     line (the ``--out`` file keeps every digit)."""
@@ -5180,7 +5356,8 @@ def build_kernels() -> tuple:
     from importlib import import_module
     root = Path(__file__).resolve().parent
     mods = [import_module(f"{PKG}.ops.{m}") for m in
-            ("spmm_cuda", "adam_cuda", "chunk_spmm_cuda", "row_gather_cuda")]
+            ("spmm_cuda", "adam_cuda", "chunk_spmm_cuda", "row_gather_cuda",
+             "topk_select_cuda")]
     for m in mods:
         if not m.SOURCE.resolve().is_relative_to(root):
             raise RuntimeError(f"{PKG} was imported from "
@@ -5356,7 +5533,6 @@ def run(dev, out_path=None) -> int:
                 "sampling_costs": phase_sampling_costs(dev, tmp),
                 "scaling_projection": phase_scaling_projection(
                     dev, ns_graph, terms.pop("_path"), tmp)}
-    del ns_graph
     log(f"[phase 21] done in {time.perf_counter() - t21:.1f}s")
 
     # ---- phase 22: the JAX trainer's own random streams on the card ----
@@ -5364,6 +5540,13 @@ def run(dev, out_path=None) -> int:
     torch.cuda.empty_cache()
     streams = phase_jax_streams(dev)
     log(f"[phase 22] done in {time.perf_counter() - t22:.1f}s")
+
+    # ---- phase 23: the top-k select on the cells' score matrices ----
+    t23 = time.perf_counter()
+    torch.cuda.empty_cache()
+    topk = phase_topk_select(dev, ns_graph)
+    del ns_graph
+    log(f"[phase 23] done in {time.perf_counter() - t23:.1f}s")
 
     dirs = res["directions"]
     pair = times["adam_pair"]
@@ -5474,6 +5657,25 @@ def run(dev, out_path=None) -> int:
     }]
     kernels += probe_kernel_entries(chunk, probes, paths, main_paths,
                                     ch_times)
+    t_rows = topk["rows"]
+    kernels.append({
+        "name": "topk_select",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/topk_select.cu",
+        "replaces": REPLACES_TOPK,
+        # one call a batch of a full evaluation or a request, on the main
+        # paths that rank on one device
+        "launches": sum(paths[k]["topk_select"] for k in main_paths),
+        "launches_by_path": launches_by_path(paths, "topk_select"),
+        "max_abs_err": max(r["max_abs_err"] for r in t_rows),
+        "ids_equal": all(r["ids_equal"] for r in t_rows),
+        # the evaluation's batch (phase 23 (a))
+        **{k: t_rows[0][k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                     "bound_ms", "library_ms",
+                                     "engaged_share")},
+        "bound_by": "bytes",
+        "cases": t_rows,
+    })
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(
@@ -5495,6 +5697,7 @@ def run(dev, out_path=None) -> int:
              "drivers": {**drivers, "ingest_bench": ingest_rec,
                          "eval_breakdown": breakdown},
              "last_modules": last, "jax_streams": streams,
+             "topk_select": topk,
              "train_times": {k: v for k, v in times.items()
                              if k not in ("backward_directions",
                                           "adam_leaves", "adam_pair")},
